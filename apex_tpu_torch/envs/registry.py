@@ -1,0 +1,23 @@
+"""Environment factory (reference util/env.py:8-72), for the environments
+the port has: Cassie-v0 in its default configuration."""
+from __future__ import annotations
+
+from apex_tpu_torch.envs.base import Env
+
+
+def env_factory(env_name: str, device=None, **kwargs) -> Env:
+    """Build an environment by registered name on `device` (GPU unless
+    "cpu" is asked for)."""
+    if env_name.lower() in ("cassie-v0", "cassie"):
+        from apex_tpu_torch.envs.cassie import CassieEnv
+
+        keys = ("simrate", "command_profile", "input_profile",
+                "dynamics_randomization", "learn_gains", "reward", "history",
+                "estimator", "estimator_tau", "estimator_noise", "terrain",
+                "min_speed", "max_speed", "orient_jump_prob",
+                "speed_phase_add")
+        return CassieEnv(device=device,
+                         **{k: v for k, v in kwargs.items() if k in keys})
+    raise NotImplementedError(
+        f"environment {env_name!r} is not ported to apex_tpu_torch yet "
+        "(available: Cassie-v0)")

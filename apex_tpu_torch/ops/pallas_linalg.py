@@ -1,0 +1,45 @@
+"""K3: the batched SPD inverse of the fleet physics, as a CUDA kernel.
+
+Counterpart of `apex_tpu/ops/pallas_linalg.py`, whose Pallas kernel
+inverts the damped mass matrix M + hD of every env once per substep. The
+kernel is `csrc/spd_inverse.cu`; its plain version is the unrolled Cholesky
+of `ops/linalg.py`. The wrapper takes the plain version for tensors on the
+CPU only; for CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from apex_tpu_torch.ops import cuda_build
+from apex_tpu_torch.ops.linalg import spd_inverse
+
+
+def spd_inverse_bt_plain(A: torch.Tensor) -> torch.Tensor:
+    """(n, n, B) SPD -> (n, n, B) inverses, through `linalg.spd_inverse`."""
+    return spd_inverse(A.permute(2, 0, 1)).permute(1, 2, 0).contiguous()
+
+
+def spd_inverse_bt(A: torch.Tensor) -> torch.Tensor:
+    """Batch-last SPD inverse: A (n, n, B) symmetric -> out (n, n, B) with
+    out[i, m, b] = A[:, :, b]^-1[i, m] (the layout of
+    `pallas_spd_inverse_bt`). n <= 32, float32."""
+    if A.device.type == "cpu":
+        return spd_inverse_bt_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"spd_inverse_bt: unsupported device {A.device}")
+    if A.dtype != torch.float32 or A.dim() != 3 or A.shape[0] != A.shape[1] \
+            or not 1 <= A.shape[0] <= 32 or not A.is_contiguous():
+        raise ValueError("spd_inverse_bt: expects a contiguous float32 "
+                         f"(n, n, B) tensor with n <= 32, got {A.dtype} "
+                         f"{tuple(A.shape)} contiguous={A.is_contiguous()}")
+    n, _, B = A.shape
+    out = torch.empty_like(A)
+    lib = cuda_build.library()
+    err = lib.apex_spd_inverse(A.data_ptr(), out.data_ptr(), n, B,
+                               torch.cuda.current_stream(A.device).cuda_stream)
+    cuda_build.check(err, "apex_spd_inverse")
+    spd_inverse_bt.launches += 1
+    return out
+
+
+spd_inverse_bt.launches = 0

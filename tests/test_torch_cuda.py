@@ -1,0 +1,134 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. These tests need a CUDA device and the CUDA toolkit (the kernels are
+built with nvcc at first use) and skip elsewhere. They import no JAX, so
+they run where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu_torch.ops import pallas_linalg
+from apex_tpu_torch.physics import fleet, fleet_fk
+from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
+from apex_tpu_torch.physics.engine import PhysParams
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _fleet(B, seed):
+    m = cassie_model()
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    qpos = torch.tensor(CASSIE_QPOS_INIT, dtype=torch.float32)[:, None] \
+        + 0.05 * torch.randn(m.nq, B, generator=gen)
+    for j in m.joints:
+        if j.jtype.name == "BALL":
+            q = qpos[j.qposadr:j.qposadr + 4]
+            qpos[j.qposadr:j.qposadr + 4] = q / q.norm(dim=0)
+    qvel = 0.1 * torch.randn(m.nv, B, generator=gen)
+    params = PhysParams.from_model(m, B, torch.device("cpu"))
+    params.body_mass = params.body_mass * (
+        0.5 + torch.rand(m.nbody, B, generator=gen))
+    params.body_ipos = params.body_ipos + 0.01 * torch.randn(
+        m.nbody, 3, B, generator=gen)
+    return qpos, qvel, params
+
+
+@pytest.mark.parametrize("B", [1, 64, 1000, 1024])
+def test_fk_kernel_matches_plain(cuda, B):
+    """K2 against fk_plain on the card: f32 rounding of a 25-body chain
+    (FMA contraction, CUDA's sinf/cosf within 2 ulp)."""
+    m = cassie_model()
+    qpos, _, params = _fleet(B, seed=B)
+    qpos, ipos = qpos.to(cuda), params.body_ipos.to(cuda)
+    before = fleet_fk.fleet_fk.launches
+    got = fleet_fk.fleet_fk(m, ipos, qpos)
+    assert fleet_fk.fleet_fk.launches == before + 1
+    ref = fleet_fk.fk_plain(m, ipos, qpos)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,B", [(32, 1), (32, 64), (32, 1000), (9, 64)])
+def test_spd_inverse_kernel_matches_plain(cuda, n, B):
+    """K3 against the unrolled Cholesky on random SPD: 1e-5 of max|A^-1|
+    (f32 rounding times a condition number ~1e2); B not a multiple of the
+    block's 8 matrices and n < 32 exercise the padding."""
+    gen = torch.Generator()
+    gen.manual_seed(n * B)
+    X = torch.randn(B, n, n, generator=gen, dtype=torch.float64)
+    A = (X @ X.transpose(1, 2) / n + 0.1 * torch.eye(n, dtype=torch.float64))
+    At = A.permute(1, 2, 0).contiguous().float().to(cuda)
+    before = pallas_linalg.spd_inverse_bt.launches
+    got = pallas_linalg.spd_inverse_bt(At)
+    assert pallas_linalg.spd_inverse_bt.launches == before + 1
+    ref = pallas_linalg.spd_inverse_bt_plain(At)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_kernel_wrappers_refuse_bad_inputs(cuda):
+    A = torch.eye(4, device=cuda)[:, :, None].expand(4, 4, 3)
+    with pytest.raises(ValueError):
+        pallas_linalg.spd_inverse_bt(A)                  # not contiguous
+    with pytest.raises(ValueError):
+        pallas_linalg.spd_inverse_bt(A.double().contiguous())
+    with pytest.raises(ValueError):
+        pallas_linalg.spd_inverse_bt(torch.zeros(33, 33, 2, device=cuda))
+    m = cassie_model()
+    with pytest.raises(ValueError):
+        fleet_fk.fleet_fk(m, torch.zeros(m.nbody, 3, 2, device=cuda),
+                          torch.zeros(m.nq, 3, device=cuda))
+
+
+def _rounding_envelope(m, params, qpos, qvel, ctrl, draws=4):
+    """Per-row spread of the CPU substep's new qpos and qvel when its
+    inputs change by random factors 1 +- 1e-7, i.e. by f32 rounding."""
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    _, _, q0, v0, _, _ = fleet.fleet_step(m, params, qpos, qvel, ctrl)
+    env_q, env_v = torch.zeros_like(q0[:, :1]), torch.zeros_like(v0[:, :1])
+    for _ in range(draws):
+        jitter = lambda x: x * (1.0 + 1e-7 * (
+            torch.randint(0, 2, x.shape, generator=gen) * 2.0 - 1.0))
+        _, _, q, v, _, _ = fleet.fleet_step(m, params, jitter(qpos),
+                                            jitter(qvel), ctrl)
+        env_q = torch.maximum(env_q, (q - q0).abs().amax(1, keepdim=True))
+        env_v = torch.maximum(env_v, (v - v0).abs().amax(1, keepdim=True))
+    return env_q, env_v
+
+
+@pytest.mark.parametrize("seed,ctrl_scale", [(7, 0.0), (8, 0.3)])
+def test_fleet_step_on_the_card_matches_the_cpu(cuda, seed, ctrl_scale):
+    """One substep of a dyn-rand fleet through both kernels against the
+    CPU run of the plain versions. (M + hD)^-1 (condition ~1e5) amplifies
+    f32 rounding unevenly across dofs (hip yaw and the achilles-rod ball
+    joints most, the latter spinning at up to ~2.5e3 rad/s when the 5%
+    qpos noise opens the loop closures); each device's result carries
+    about the spread that rounding-level input changes cause, so the two
+    are held to four times that spread, per row."""
+    m = cassie_model()
+    qpos, qvel, params = _fleet(64, seed=seed)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    ctrl = ctrl_scale * torch.randn(m.nu, 64, generator=gen)
+    to = lambda p: PhysParams(**{k: v.to(cuda) for k, v in vars(p).items()})
+    out_g = fleet.fleet_step(m, to(params), qpos.to(cuda), qvel.to(cuda),
+                             ctrl.to(cuda))
+    out_c = fleet.fleet_step(m, params, qpos, qvel, ctrl)
+    (dyn_g, _, qpos_g, qvel_g, _, _), (dyn_c, _, qpos_c, qvel_c, _, _) = \
+        out_g, out_c
+    torch.testing.assert_close(dyn_g.M.cpu(), dyn_c.M, rtol=1e-4, atol=1e-4)
+    env_q, env_v = _rounding_envelope(m, params, qpos, qvel, ctrl)
+    assert ((qvel_g.cpu() - qvel_c).abs() <= 4 * env_v + 1e-6).all()
+    assert ((qpos_g.cpu() - qpos_c).abs() <= 4 * env_q + 1e-6).all()
+    assert np.isfinite(qvel_g.cpu().numpy()).all()
