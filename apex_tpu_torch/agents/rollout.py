@@ -88,3 +88,14 @@ def rollout_scan(env: Env, policy_fn: Callable[[torch.Tensor], torch.Tensor],
             traj_len=torch.where(done, 0, traj_len),
             ep_return=torch.where(done, 0.0, ep_return))
     return runner, Rollout(*(torch.stack(x) for x in zip(*out)))
+
+
+def episode_stats(traj: Rollout):
+    """Mean return and length of the episodes finished in this rollout,
+    and the mean per-step reward (rollout.py:episode_stats)."""
+    n_done = torch.clamp(torch.sum(traj.done_ep_len > 0), min=1)
+    return {
+        "ep_return": torch.sum(traj.done_ep_return) / n_done,
+        "ep_len": torch.sum(traj.done_ep_len) / n_done,
+        "reward_per_step": traj.reward.mean(),
+    }

@@ -7,8 +7,9 @@ firmware-estimator lag, the early_clock reward and flat ground. Any other
 configuration raises NotImplementedError.
 
 The env is a fleet: every state field is batch-last (rows, B), the
-physics runs through the batch-last fleet step (`physics/cassie_sim.py`),
-and randomness enters as explicit draws (`ResetNoise`, `StepNoise`).
+physics runs through the PD scan of `physics/cassie_sim.py` (K1 or the
+batch-last fleet step), and randomness enters as explicit draws
+(`ResetNoise`, `StepNoise`).
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.device import resolve_device
-from apex_tpu_torch.envs.base import Env
+from apex_tpu_torch.envs.base import Env, to_batch_first
 from apex_tpu_torch.physics.cassie_sim import (
+    PD_TIERS,
     CassiePhysState,
     CassieStateOut,
     NEUTRAL_OFFSET,
@@ -148,6 +150,9 @@ class CassieEnv(Env):
     encoder_noise: float = 0.01
     strict_relaxer: float = 0.1          # cassie.py:92
     device: object = None
+    # physics tier of the PD scan: "megakernel" (K1), "fleet", or None for
+    # the device's default (megakernel on CUDA, fleet on the CPU)
+    pd_tier: str | None = None
 
     def __post_init__(self):
         unsupported = {
@@ -165,6 +170,9 @@ class CassieEnv(Env):
                 "only (clock commands, full observations, dyn-rand, "
                 "firmware estimator without noise, early_clock reward, flat "
                 f"ground); not yet: {unsupported}")
+        if self.pd_tier not in (None, *PD_TIERS):
+            raise ValueError(f"pd_tier must be None or one of {PD_TIERS}, "
+                             f"got {self.pd_tier!r}")
         self.device = resolve_device(self.device)
         self.model = cassie_model()
         self.observation_size = 46 + 4
@@ -271,7 +279,7 @@ class CassieEnv(Env):
         cmd = PDCommand.from_targets(target)
 
         phys, diag_seq, qvel_seq, qacc_seq = pd_scan(
-            m, state.params, state.phys, cmd, self.simrate)
+            m, state.params, state.phys, cmd, self.simrate, self.pd_tier)
 
         # firmware-estimator EMA in closed form:
         # e_L = a^L e_0 + (1-a) sum_t a^(L-1-t) v_t
@@ -334,6 +342,28 @@ class CassieEnv(Env):
             state, phys=phys, phase=phase, counter=counter, time=time_,
             speed=speed, side_speed=side_speed, orient_add=orient_add)
         return new_state, self._build_obs(new_state, est), reward, terminated
+
+    def checkpoint_leaves(self, state: CassieEnvState,
+                          obs: torch.Tensor):
+        """The JAX CassieEnvState's leaves (envs/cassie.py:120-145), batch-
+        first. The fields the port does not carry hold what the default
+        configuration leaves in them: zero previous action and torque, the
+        current observation as the one-frame history, no swing-apex flags,
+        a phase increment of 1."""
+        B = obs.shape[0]
+        fields = [state.phys.qpos, state.phys.qvel, state.phys.qacc,
+                  *(getattr(state.params, f.name)
+                    for f in dataclasses.fields(state.params)),
+                  *(getattr(state.clock, f.name)
+                    for f in dataclasses.fields(state.clock)),
+                  state.phase, state.counter, state.time, state.speed,
+                  state.side_speed, state.orient_add, state.swing_duration,
+                  state.stance_duration, state.stance_mode,
+                  state.motor_enc_noise, state.joint_enc_noise]
+        return [to_batch_first(x) for x in fields] + [
+            np.zeros((B, 10), np.float32), np.zeros((B, 10), np.float32),
+            obs.detach().cpu().numpy()[:, None, :].astype(np.float32),
+            np.zeros(B, bool), np.zeros(B, bool), np.ones(B, np.float32)]
 
     # ------------------------------------------------------------------
     def _rotate_to_orient(self, orient_add: torch.Tensor, vec: torch.Tensor):

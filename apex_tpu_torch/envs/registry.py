@@ -1,5 +1,5 @@
 """Environment factory (reference util/env.py:8-72), for the environments
-the port has: Cassie-v0 in its default configuration."""
+the port has: Cassie-v0 in its default configuration and PointMass-v0."""
 from __future__ import annotations
 
 from apex_tpu_torch.envs.base import Env
@@ -15,9 +15,13 @@ def env_factory(env_name: str, device=None, **kwargs) -> Env:
                 "dynamics_randomization", "learn_gains", "reward", "history",
                 "estimator", "estimator_tau", "estimator_noise", "terrain",
                 "min_speed", "max_speed", "orient_jump_prob",
-                "speed_phase_add")
+                "speed_phase_add", "pd_tier")
         return CassieEnv(device=device,
                          **{k: v for k, v in kwargs.items() if k in keys})
+    if env_name.lower() in ("pointmass-v0", "pointmass"):
+        from apex_tpu_torch.envs.base import PointMassEnv
+
+        return PointMassEnv(device=device)
     raise NotImplementedError(
         f"environment {env_name!r} is not ported to apex_tpu_torch yet "
-        "(available: Cassie-v0)")
+        "(available: Cassie-v0, PointMass-v0)")

@@ -4,8 +4,9 @@ Port of `NormState`, `GaussianFFActor` and `FFV` from
 `apex_tpu/models/nets.py` (reference rl/policies/actor.py:142-215,
 critic.py:37-77). The JAX nets keep (in, out) weights and compute
 x @ W + b; here they are `nn.Linear` layers with (out, in) weights, and
-`runtime/checkpoint.py` transposes when it loads JAX leaves. Initializers
-are not ported: the port loads trained weights.
+`runtime/checkpoint.py` transposes when it loads JAX leaves. `init`
+builds a net with the JAX package's initialisers (normc, the mean head
+scaled by 0.01, zero biases), drawing from an explicit generator.
 """
 from __future__ import annotations
 
@@ -56,6 +57,27 @@ def _mlp(sizes: Sequence[int]) -> nn.ModuleList:
     return nn.ModuleList(nn.Linear(a, b) for a, b in zip(sizes, sizes[1:]))
 
 
+def normc_init(generator: torch.Generator, in_dim: int, out_dim: int,
+               scale: float = 1.0) -> torch.Tensor:
+    """normc (reference base.py:7-13, `apex_tpu.models.nets.normc_init`):
+    N(0, 1) draws, each output unit's weights scaled to norm `scale`.
+    Returns the (in, out) matrix of the JAX layout; an nn.Linear takes
+    its transpose."""
+    w = torch.randn((in_dim, out_dim), generator=generator,
+                    device=generator.device)
+    w = w / torch.sqrt(torch.sum(w * w, dim=0, keepdim=True))
+    return w * scale
+
+
+@torch.no_grad()
+def _normc_(layer: nn.Linear, generator: torch.Generator,
+            scale: float = 1.0) -> None:
+    """Set an nn.Linear to normc weights and a zero bias."""
+    w = normc_init(generator, layer.in_features, layer.out_features, scale)
+    layer.weight.copy_(w.T)
+    layer.bias.zero_()
+
+
 class GaussianFFActor(nn.Module):
     """Gaussian feed-forward actor (reference Gaussian_FF_Actor,
     actor.py:142-215): relu MLP, linear mean head, fixed std or
@@ -71,6 +93,24 @@ class GaussianFFActor(nn.Module):
                         if fixed_std is None else None)
         self.fixed_std = fixed_std
         self.bounded = bounded
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             layers: Sequence[int] = (256, 256),
+             fixed_std: Optional[float] = None,
+             bounded: bool = False) -> "GaussianFFActor":
+        """`GaussianFFActor.init` (nets.py:145-162): normc hidden layers,
+        the mean head scaled by 0.01 (actor.py:175-178), a normc log-std
+        head when the std is learned, zero biases; on the generator's
+        device."""
+        actor = cls(obs_dim, action_dim, layers, fixed_std, bounded).to(
+            generator.device)
+        for layer in actor.layers:
+            _normc_(layer, generator)
+        _normc_(actor.mean, generator, scale=0.01)
+        if actor.log_std is not None:
+            _normc_(actor.log_std, generator)
+        return actor
 
     def dist(self, norm: NormState, obs: torch.Tensor, anneal: float = 1.0
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -104,6 +144,15 @@ class FFV(nn.Module):
         super().__init__()
         self.layers = _mlp((obs_dim, *layers))
         self.out = nn.Linear(layers[-1], 1)
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int,
+             layers: Sequence[int] = (256, 256)) -> "FFV":
+        """`FFV.init` (nets.py:244-251): normc everywhere, zero biases."""
+        critic = cls(obs_dim, layers).to(generator.device)
+        for layer in (*critic.layers, critic.out):
+            _normc_(layer, generator)
+        return critic
 
     def value(self, norm: NormState, obs: torch.Tensor) -> torch.Tensor:
         x = norm(obs)

@@ -1,10 +1,11 @@
 """Cassie simulation layer: PD drives, 2 kHz substep, state estimator.
 
-Port of `apex_tpu/physics/cassie_sim.py` for the fleet path: the PD scan
-runs the batch-last fleet step (`physics/fleet.py`) for `length` substeps,
-as `_fleet_pd_scan` does in the JAX package on every backend but the TPU
-(there the whole-substep megakernel K1 takes over; it is not ported yet).
-Every state here is batch-last: qpos (35, B), PD command rows (10, B).
+Port of `apex_tpu/physics/cassie_sim.py` for the fleet: the PD scan runs
+`length` substeps through one of two tiers, as `_fleet_pd_scan` does in the
+JAX package: the whole-substep kernel K1 (`physics/fleet_kernel.py`, the
+JAX package's path on its accelerator) or the batch-last fleet step
+(`physics/fleet.py`, its path on the CPU and GPU backends). Every state
+here is batch-last: qpos (35, B), PD command rows (10, B).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.device import const
-from apex_tpu_torch.physics import fleet
+from apex_tpu_torch.physics import fleet, fleet_kernel
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.physics.models.cassie_gen import make_model
 from apex_tpu_torch.physics.spec import PhysModel
@@ -124,18 +125,67 @@ def _feet(model: PhysModel):
     return model.body_id("left-foot"), model.body_id("right-foot"), left, right
 
 
+PD_TIERS = ("megakernel", "fleet")
+
+
 def pd_scan(model: PhysModel, params: PhysParams, phys: CassiePhysState,
-            cmd: PDCommand, length: int):
+            cmd: PDCommand, length: int, tier: str | None = None):
     """`length` PD substeps (the 2 kHz control-step loop) of the fleet.
 
     Returns (phys_final, diag_seq, qvel_seq, qacc_seq): diag_seq leaves
     carry a leading (length,) substep axis, qvel/qacc_seq are
     (length, nv, B) -- the post-substep streams the env tracking layer
-    reduces. Port of `_fleet_pd_scan`'s fleet branch (cassie_sim.py:
-    302-347): PD law, fleet_step, diagnostics, per substep.
+    reduces. `tier` is "megakernel" (one K1 launch per substep,
+    `_megakernel_pd_scan`) or "fleet" (the batch-last fleet step); None
+    takes the megakernel for CUDA tensors and the fleet on the CPU, the
+    split `_fleet_pd_scan` makes by backend (cassie_sim.py:292-300).
 
     Reference parity anchor: the simrate x cassie_sim_step_pd loop
     (cassie.py:410-433, include/cassiemujoco.h:80)."""
+    if tier is None:
+        tier = "megakernel" if phys.qpos.device.type == "cuda" else "fleet"
+    if tier == "megakernel":
+        return _megakernel_pd_scan(model, params, phys, cmd, length)
+    if tier != "fleet":
+        raise ValueError(f"pd_scan: tier must be one of {PD_TIERS}, got "
+                         f"{tier!r}")
+    return _fleet_pd_scan(model, params, phys, cmd, length)
+
+
+def _megakernel_pd_scan(model: PhysModel, params: PhysParams,
+                        phys: CassiePhysState, cmd: PDCommand, length: int):
+    """Port of `_megakernel_pd_scan` (cassie_sim.py:376-447): the command
+    and parameter rows stacked once, then `length` K1 substeps, each giving
+    the new state and the 44 diagnostic rows that rebuild `SubstepDiag`."""
+    cmd_rows = torch.cat([cmd.p_target, cmd.d_target, cmd.p_gain,
+                          cmd.d_gain, cmd.ff_torque], dim=0)   # (5 nu, B)
+    static = fleet_kernel.static_rows(model, params)
+    qpos, qvel = phys.qpos, phys.qvel
+    diags, qvels, qaccs = [], [], []
+    for _ in range(length):
+        qpos, qvel, qacc, diag_rows = fleet_kernel.pd_substep(
+            model, params, qpos, qvel, cmd_rows, static)
+        diags.append(diag_rows)
+        qvels.append(qvel)
+        qaccs.append(qacc)
+    d = torch.stack(diags)                                     # (L, 44, B)
+    L, B = length, qpos.shape[-1]
+    diag_seq = SubstepDiag(
+        foot_frc_z=d[:, 0:2],
+        foot_pos=d[:, 2:8].reshape(L, 2, 3, B),
+        foot_vel=d[:, 8:14].reshape(L, 2, 3, B),
+        foot_quat=d[:, 14:22].reshape(L, 2, 4, B),
+        toe_heel_force=d[:, 22:34].reshape(L, 2, 2, 3, B),
+        motor_torque=d[:, 34:34 + model.nu])
+    qacc_seq = torch.stack(qaccs)
+    return (CassiePhysState(qpos=qpos, qvel=qvel, qacc=qacc_seq[-1]),
+            diag_seq, torch.stack(qvels), qacc_seq)
+
+
+def _fleet_pd_scan(model: PhysModel, params: PhysParams,
+                   phys: CassiePhysState, cmd: PDCommand, length: int):
+    """Port of `_fleet_pd_scan`'s fleet branch (cassie_sim.py:302-347): PD
+    law, fleet_step, diagnostics, per substep."""
     dev = phys.qpos.device
     gear = const([a.gear for a in model.actuators], dev)[:, None]
     lf, rf, lcon, rcon = _feet(model)

@@ -13,6 +13,8 @@ leading leaves are, with weights stored (in, out):
 
 followed by the optimizer states, the rollout runner and the rng, which
 evaluation does not need. Reading the file needs numpy only.
+`save_checkpoint` writes the same list from the port's PPO train state,
+so that a run directory of the port loads in the JAX package too.
 """
 from __future__ import annotations
 
@@ -63,6 +65,66 @@ def from_jax_leaves(leaves: Sequence[np.ndarray],
                          f"input of {actor[0][1].shape[1]}")
     return CheckpointState(OrderedDict(actor), OrderedDict(critic),
                            OrderedDict(norm))
+
+
+def _jax_params(net) -> list:
+    """(param tensor, stored transposed) pairs in the JAX flattening order
+    of a GaussianFFActor or FFV: per dense layer (b, w (in, out)), dict
+    keys sorted (layers, log_std, mean | layers, out)."""
+    if hasattr(net, "out"):
+        heads = [net.out]
+    else:
+        heads = ([net.log_std] if net.log_std is not None else []) \
+            + [net.mean]
+    return [x for layer in (*net.layers, *heads)
+            for x in ((layer.bias, False), (layer.weight, True))]
+
+
+def _np(x: torch.Tensor, transpose: bool = False) -> np.ndarray:
+    a = x.detach().cpu().numpy()
+    return np.array(a.T if transpose else a, order="C")
+
+
+def _opt_leaves(opt, net) -> list:
+    """optax's inject_hyperparams(clip + adam) state: count, hyperparams
+    (eps, learning_rate, max_grad_norm), adam count, mu tree, nu tree."""
+    index = {id(p): i for i, p in enumerate(opt.params)}
+    order = [(index[id(p)], t) for p, t in _jax_params(net)]
+    count = np.asarray(opt.count, np.int32)
+    return ([count] + [np.asarray(v, np.float32) for v in
+                       (opt.eps, opt.lr, opt.max_grad_norm)]
+            + [count.copy()] + [_np(opt.mu[i], t) for i, t in order]
+            + [_np(opt.nu[i], t) for i, t in order])
+
+
+def to_jax_leaves(state, env) -> list:
+    """The leaf list of the JAX PPOTrainState for the port's train state
+    (field order actor, critic, norm, actor_opt, critic_opt, runner, rng).
+    The rng leaves hold the key PRNGKey(seed) of the run's seed."""
+    key = np.asarray([0, state.seed & 0xFFFFFFFF], np.uint32)
+    runner = state.runner
+    return ([_np(p, t) for p, t in _jax_params(state.actor)]
+            + [_np(p, t) for p, t in _jax_params(state.critic)]
+            + [_np(state.norm.mean), _np(state.norm.var),
+               _np(state.norm.count)]
+            + _opt_leaves(state.actor_opt, state.actor)
+            + _opt_leaves(state.critic_opt, state.critic)
+            + env.checkpoint_leaves(runner.env_state, runner.obs)
+            + [_np(runner.obs), _np(runner.traj_len), _np(runner.ep_return),
+               key, key.copy()])
+
+
+def save_checkpoint(path: str, state, env,
+                    name: str = "checkpoint.pkl") -> str:
+    """Write the JAX leaf list of a PPO train state to <path>/<name>
+    (`apex_tpu.runtime.checkpoint.save_checkpoint`'s format)."""
+    os.makedirs(path, exist_ok=True)
+    full = os.path.join(path, name)
+    tmp = full + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(to_jax_leaves(state, env), f)
+    os.replace(tmp, full)
+    return full
 
 
 def load_checkpoint(path: str, learn_stddev: bool = False,

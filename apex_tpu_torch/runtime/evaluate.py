@@ -32,9 +32,11 @@ class Experiment(NamedTuple):
     args: SimpleNamespace
 
 
-def load_experiment(path: str, device=None) -> Experiment:
+def load_experiment(path: str, device=None, physics=None) -> Experiment:
     """Rebuild (env, actor, critic, norm, args) from a run directory, with
-    the JAX package's defaults for settings the run did not record."""
+    the JAX package's defaults for settings the run did not record.
+    `physics` picks the PD scan's tier ("megakernel" or "fleet"; None: the
+    device's default)."""
     device = resolve_device(device)
     with open(os.path.join(path, "experiment.pkl"), "rb") as f:
         args = SimpleNamespace(**pickle.load(f))
@@ -52,7 +54,8 @@ def load_experiment(path: str, device=None) -> Experiment:
         min_speed=getattr(args, "min_speed", -0.3),
         max_speed=getattr(args, "max_speed", 4.0),
         orient_jump_prob=getattr(args, "orient_jump_prob", 0.0),
-        speed_phase_add=getattr(args, "speed_phase_add", False))
+        speed_phase_add=getattr(args, "speed_phase_add", False),
+        pd_tier=physics)
 
     learn_stddev = getattr(args, "learn_stddev", False)
     ckpt = load_checkpoint(path, learn_stddev=learn_stddev)
@@ -73,13 +76,13 @@ def load_experiment(path: str, device=None) -> Experiment:
 
 @torch.no_grad()
 def eval_checkpoint(path: str, n_episodes: int = 16, traj_len: int = 400,
-                    device=None, seed: int = 42):
+                    device=None, seed: int = 42, physics=None):
     """Deterministic evaluation of a saved run: `n_episodes` envs step
     `traj_len` times (auto-resetting the ones that fall); prints and
     returns the mean return and length of the finished episodes."""
     from apex_tpu_torch.agents.rollout import init_runner, rollout_scan
 
-    exp = load_experiment(path, device=device)
+    exp = load_experiment(path, device=device, physics=physics)
     env = exp.env
     generator = torch.Generator(device=env.device)
     generator.manual_seed(seed)

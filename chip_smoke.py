@@ -1,23 +1,34 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: `python3 chip_smoke.py`.
 
-Drives the port's main path -- the deterministic evaluation of the
+Drives the port's main paths -- the deterministic evaluation of the
 JAX-trained Cassie policy `curves/cassie_mk4_hardened_ckpt` (64 envs, 300
 policy steps of 50 PD substeps, dyn-rand, firmware estimator, early_clock
-reward) -- through `apex_tpu_torch.runtime.evaluate.eval_checkpoint`, after
-building the hand-written CUDA kernels from `apex_tpu_torch/csrc/` and
-holding each against its plain PyTorch version on the card. Phases, each
-printed with its seconds as it ends:
+reward) through the whole-substep kernel K1, the same evaluation through
+the fleet tier at reduced depth, and two PPO iterations of
+`python -m apex_tpu_torch ppo` at the training fleet -- after building the
+hand-written CUDA kernels from `apex_tpu_torch/csrc/` and holding each
+against its plain PyTorch version on the card. Phases, each printed with
+its seconds as it ends:
 
   device     require CUDA; card name, power limit, torch and CUDA versions
-  build      nvcc build of the kernels (registers and spills printed)
+  build      nvcc build of the kernels (seconds; registers and spills)
   K3, K2     each kernel against its plain version at B = 64 and 1024:
              max error, kernel / plain / library ms, the roofline bound
+  K1         the substep kernel against its plain version at B = 64 and
+             1024, on a perturbed fleet and near the standing pose
+             (bounds from the plain version's rounding spread per row),
+             and against the fleet step at the JAX package's
+             megakernel-vs-fleet tolerances
   parity     a reset and one fleet substep on the GPU against the CPU;
              a GPU env step gives finite values of the right shapes
-  eval       the 64-env, 300-step evaluation; launch counts of K2 and K3
-             must equal what the code path implies
+  eval       the 64-env, 300-step evaluation on the megakernel tier for
+             seeds 42, 0 and 1; launch counts of K1, K2 and K3 must equal
+             what the code path implies
+  eval_fleet the same evaluation on the fleet tier, 30 steps, seed 42
   step_1024  ms per policy step at the training fleet (1024 envs), and
              CUDA launches per substep from torch.profiler
+  train      `python -m apex_tpu_torch ppo` in-process, 2 iterations of
+             32,768 env steps at 1024 envs; the run directory loads back
 
 The line before the last holds the kernels' JSON record, the card's name
 and power limit precede it, and the last line is the JSON verdict. Any
@@ -35,13 +46,22 @@ import torch
 
 from apex_tpu_torch.envs.cassie import CassieEnv
 from apex_tpu_torch.ops import cuda_build, pallas_linalg
-from apex_tpu_torch.physics import fleet, fleet_fk
-from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
+from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
+from apex_tpu_torch.physics.cassie_sim import (
+    CASSIE_QPOS_INIT,
+    MOTOR_QPOS_IDX,
+    MOTOR_QVEL_IDX,
+    PDCommand,
+    cassie_model,
+)
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.runtime.evaluate import eval_checkpoint, load_experiment
 
 CKPT = "curves/cassie_mk4_hardened_ckpt"
 N_ENVS, TRAJ_LEN, FLEET = 64, 300, 1024
+EVAL_SEEDS = (42, 0, 1)
+FLEET_TRAJ_LEN = 30                # depth of the fleet-tier evaluation
+SIMRATE = 50
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 
@@ -108,6 +128,62 @@ def fk_flops_per_env(model) -> int:
                 ops += 7 + 4 + 24 + 45 + 3 * 9
         ops += 21                                      # xipos
     return ops
+
+
+def k1_flops_per_env(model) -> int:
+    """FP32 operations of one env's substep in csrc/fleet_kernel.cu,
+    counted phase by phase from the loops over the model's tables (a
+    product-sum of n terms is 2n - 1 operations; a cross product 9)."""
+    meta = fleet_kernel.meta_of(model)
+    st = meta.st
+    nb, nv, nu = model.nbody, model.nv, model.nu
+    anc = [len(a) for a in meta.anc]
+    ops = 8 * nu                                       # PD law and clamp
+    ops += fk_flops_per_env(model)                     # FK and com
+    ops += nv * (27 + 3 + 12)                          # velocities, cdof_dot
+    for i in range(nb):                                # spatial inertias
+        nz = int(np.count_nonzero(model.body_inertia[i]))
+        ops += 2 * nz + 45 + 5 + 9 * 4 + 18
+    ops += nb * (2 * 6 * 11 + 27 + 9) + nv * 12        # RNEA forward
+    ops += (nb - 1) * (6 + 36) + nv * 11               # RNEA back, Ic sum
+    ops += nv * 66 + sum(11 * (a + 1) for a in anc) + 2 * nv   # CRBA
+    ops += sum(1 + 2 * (1 + anc[i]) for k in range(nv)   # LTDL
+               for i in meta.anc[k]) + nv
+
+    def solve(sup):
+        return 4 * sum(anc[k] for k in sup) + len(sup)
+
+    for ub in meta.con_bodies:                         # contact-body Lambda
+        sup = meta.body_anc[ub]
+        ops += 6 * solve(sup) + 21 * 2 * len(sup)
+    for c in model.contacts:                           # contact forces
+        ops += 2 * int(np.count_nonzero(c.offset)) + 3 + 230
+    ops += sum(12 * len(meta.body_anc[ub]) for ub in meta.con_bodies)
+    ops += sum(solve(meta.anc[int(d)] + [int(d)]) + 15 for d in st.lim_dof)
+    ops += 9 + 12 * len(meta.body_anc[0])              # root wrench
+    ops += nv * 10 + solve(range(nv)) + 2 * nv         # free acceleration
+    if model.equalities:                               # connect impulses
+        ne = 3 * len(model.equalities)
+        ops += sum(12 * len(s_) * 3 for s_ in meta.eq_sup) + 30 * len(
+            model.equalities)
+        ops += ne * solve(meta.eq_union)
+        ops += sum(2 * len(meta.eq_sup[cl // 3]) for r in range(ne)
+                   for cl in range(r, ne))
+        ops += ne * ne * 3 + ne * (2 * 16 + 4)
+        ops += ne ** 3 // 3 + 2 * ne * ne + ne * 2     # Cholesky, solves
+        ops += ne * 2 * 16 + solve(range(nv)) + nv
+    ops += 3 * nv + 2 * len(st.lin_dof) + 60 * len(st.balls)   # integrate
+    ops += 2 * 40 + 30                                 # diagnostic rows
+    return ops
+
+
+def k1_bytes_per_env(model) -> int:
+    """Bytes one env's substep must move: each input row read once and each
+    output row written once, 4 bytes each."""
+    rows_in = (model.nq + model.nv + 5 * model.nu + model.nv + model.nbody
+               + 3 * model.nbody + fleet_kernel.MISC_ROWS)
+    rows_out = model.nq + 2 * model.nv + fleet_kernel.DIAG_ROWS
+    return 4 * (rows_in + rows_out)
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +287,155 @@ def check_k2(gen, dev):
     return out
 
 
+def k1_inputs(B: int, gen: torch.Generator, dev):
+    """`cassie_inputs`, with every other env lowered 2 cm into the floor so
+    that contact forces are nonzero, friction U(0.4, 1.1), the floor tilted
+    by up to 0.03 rad, an external wrench on the pelvis, and PD targets
+    0.1 rad around the motor positions at the default gains."""
+    m = cassie_model()
+    qpos, qvel, params = cassie_inputs(B, gen)
+    qpos[2, 1::2] -= 0.02
+    params.friction = 0.4 + 0.7 * torch.rand(B, generator=gen)
+    half = 0.015 * (2 * torch.rand(2, B, generator=gen) - 1)
+    params.floor_quat = torch.stack([
+        torch.cos(half[0]) * torch.cos(half[1]),
+        torch.sin(half[0]) * torch.cos(half[1]),
+        torch.cos(half[0]) * torch.sin(half[1]),
+        -torch.sin(half[0]) * torch.sin(half[1])])
+    params.ext_force = 20.0 * torch.randn(6, B, generator=gen)
+    target = qpos[torch.as_tensor(MOTOR_QPOS_IDX)] + 0.1 * torch.randn(
+        m.nu, B, generator=gen)
+    return k1_to(dev, qpos, qvel, params, target)
+
+
+def k1_to(dev, qpos, qvel, params, target):
+    cmd = PDCommand.from_targets(target)
+    rows = torch.cat([cmd.p_target, cmd.d_target, cmd.p_gain, cmd.d_gain,
+                      cmd.ff_torque])
+    to = lambda p: PhysParams(**{k: v.to(dev).contiguous()
+                                 for k, v in vars(p).items()})
+    return (to(params), qpos.to(dev).contiguous(),
+            qvel.to(dev).contiguous(), rows.to(dev).contiguous())
+
+
+def k1_standing_inputs(B: int, gen: torch.Generator, dev, params=None):
+    """The inputs of tools/check_megakernel.py: the standing pose with
+    0.005 qpos and 0.05 qvel noise, PD targets N(0, 0.05^2), default
+    parameters unless `params` (CPU) are given; the even envs (env 0 too,
+    so B = 1 is in contact) lowered 2 cm into contact."""
+    m = cassie_model()
+    qpos = torch.tensor(CASSIE_QPOS_INIT, dtype=torch.float32)[:, None] \
+        + 0.005 * torch.randn(m.nq, B, generator=gen)
+    qpos[2, 0::2] -= 0.02
+    for j in m.joints:
+        if j.jtype.name == "BALL":
+            q = qpos[j.qposadr:j.qposadr + 4]
+            qpos[j.qposadr:j.qposadr + 4] = q / q.norm(dim=0)
+    qvel = 0.05 * torch.randn(m.nv, B, generator=gen)
+    if params is None:
+        params = PhysParams.from_model(m, B, torch.device("cpu"))
+    return k1_to(dev, qpos, qvel, params,
+                 0.05 * torch.randn(m.nu, B, generator=gen))
+
+
+def k1_vs_plain(m, params, qpos, qvel, rows, gen, what: str):
+    """K1 against `pd_substep_plain` on the same inputs, each output held
+    elementwise to `fleet_kernel.kernel_bounds`. Returns, per output, (max
+    abs error, largest error over its bound), the plain version's ms (one
+    unjittered call, host clock) and the largest contact force."""
+    got = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fleet_kernel.pd_substep_plain(m, params, qpos, qvel, rows)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    ref, spread = fleet_kernel.plain_spread(m, params, qpos, qvel, rows,
+                                            gen)
+    bounds = fleet_kernel.kernel_bounds(ref, spread)
+    worst = {}
+    for name, a, b, bound in zip(("qpos", "qvel", "qacc", "diag"), got,
+                                 ref, bounds):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"K1 {what}: non-finite {name}")
+        ratio = (a - b).abs() / bound
+        worst[name] = (float((a - b).abs().max()), float(ratio.max()))
+        if not worst[name][1] <= 1.0:
+            r, c = np.unravel_index(int(ratio.argmax()), ratio.shape)
+            raise AssertionError(
+                f"K1 {what} {name}[{r}, {c}]: err "
+                f"{float((a - b).abs()[r, c]):.3e}, {worst[name][1]:.2f} x "
+                f"its bound")
+    force = float(ref[3][0:2].abs().max())
+    if not force > 0:
+        raise AssertionError(f"K1 {what}: no contact force in the fleet")
+    return worst, plain_ms, force
+
+
+def check_k1(gen, dev, build_log: str):
+    """K1 against its plain version and against the fleet step. The
+    perturbed fleet reaches contact, tilt, friction and wrench branches,
+    but its loose achilles rods (up to ~3e3 rad/s) widen each row's bound;
+    near the standing pose every env is calm, so the same rule is tight."""
+    m = cassie_model()
+    out = {}
+    for B in (N_ENVS, FLEET):
+        params, qpos, qvel, rows = k1_inputs(B, gen, dev)
+        worst, plain_ms, force = k1_vs_plain(m, params, qpos, qvel, rows,
+                                             gen, f"B={B}")
+        params_s, qpos_s, qvel_s, rows_s = k1_standing_inputs(B, gen, dev)
+        worst_s, _, _ = k1_vs_plain(m, params_s, qpos_s, qvel_s, rows_s,
+                                    gen, f"standing B={B}")
+
+        # against the fleet step at the JAX package's tolerances
+        # (tools/check_megakernel.py:80-91), on that tool's inputs
+        k1 = fleet_kernel.pd_substep(m, params_s, qpos_s, qvel_s, rows_s)
+        gear = torch.tensor([a.gear for a in m.actuators], device=dev)[:, None]
+        mq = torch.as_tensor(MOTOR_QPOS_IDX, device=dev)
+        mv = torch.as_tensor(MOTOR_QVEL_IDX, device=dev)
+        nu = m.nu
+        tau = (rows_s[2 * nu:3 * nu] * (rows_s[:nu] - qpos_s[mq])
+               + rows_s[3 * nu:4 * nu] * (rows_s[nu:2 * nu] - qvel_s[mv])
+               + rows_s[4 * nu:])
+        _, con, fq, fv, fa, _ = fleet.fleet_step(m, params_s, qpos_s, qvel_s,
+                                                 tau / gear)
+        lcon = [i for i, c in enumerate(m.contacts) if c.group == 0]
+        l_frc = sum(con.force[i, 2] for i in lcon)
+        vs_fleet = {
+            "qpos": (float((k1[0] - fq).abs().max()), 2e-5),
+            "qvel": (float((k1[1] - fv).abs().max()), 2e-2),
+            "qacc": (float((k1[2] - fa).abs().max()), 60.0),
+            "l_frc": (float((k1[3][0] - l_frc).abs().max()), 2.0)}
+        for name, (d, tol) in vs_fleet.items():
+            if not d < tol:
+                raise AssertionError(f"K1 vs fleet B={B} {name}: {d:.3e} "
+                                     f">= {tol}")
+
+        ms = cuda_ms(lambda: fleet_kernel.pd_substep(m, params, qpos, qvel,
+                                                     rows), 20)
+        bnd, by, why = bound_ms(k1_bytes_per_env(m) * B,
+                                k1_flops_per_env(m) * B)
+        out[B] = dict(max_abs_err=max(v[0] for v in (*worst.values(),
+                                                      *worst_s.values())),
+                      ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                      library_ms=None)
+        print(f"  K1 B={B}: vs plain (max err, x bound) "
+              + ", ".join(f"{k} {v[0]:.3e} {v[1]:.2f}"
+                          for k, v in worst.items())
+              + f"; max contact force {force:.1f} N; standing pose vs "
+              "plain " + ", ".join(f"{k} {v[0]:.3e} {v[1]:.2f}"
+                                   for k, v in worst_s.items())
+              + "; vs fleet "
+              + ", ".join(f"{k} {d:.3e} (tol {t})"
+                          for k, (d, t) in vs_fleet.items())
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{bnd * 1e3:.3f} us ({by}: {why}), library none", flush=True)
+    regs = [ln.strip() for ln in build_log.split("== fleet_kernel.cu", 1)[-1]
+            .split("==", 1)[0].splitlines()
+            if "registers" in ln or "stack frame" in ln]
+    print("  K1 " + " | ".join(regs), flush=True)
+    return out
+
+
 def rounding_envelope(m, params, qpos, qvel, ctrl, gen, draws=4):
     """Per-row spread of the CPU substep's new qpos and qvel when its
     inputs change by random factors 1 +- 1e-7, i.e. by f32 rounding."""
@@ -279,69 +504,42 @@ def check_parity(dev):
     return reset_diff, float(dv.max()), float(dq.max()), ratio
 
 
-def main() -> int:
-    t0 = time.time()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    card = card_line()
-    phase("device", t0, card=f"'{card}'", torch=torch.__version__,
-          cuda=torch.version.cuda, python=sys.version.split()[0],
-          gpu=f"'{torch.cuda.get_device_name(0)}'",
-          count=torch.cuda.device_count())
-
-    t0 = time.time()
-    so = cuda_build.build()
-    cuda_build.library()
-    print(so.with_suffix(".log").read_text().strip(), flush=True)
-    phase("build", t0, library=so.name)
-
-    gen = torch.Generator()
-    gen.manual_seed(0)
-    t0 = time.time()
-    k3 = check_k3(gen, dev)
-    phase("K3", t0)
-    t0 = time.time()
-    k2 = check_k2(gen, dev)
-    phase("K2", t0)
-
-    t0 = time.time()
-    reset_diff, qvel_diff, qpos_diff, ratio = check_parity(dev)
-    phase("parity", t0, reset_obs_max_diff=f"{reset_diff:.3e}",
-          substep_qvel_max_diff=f"{qvel_diff:.3e}",
-          substep_qpos_max_diff=f"{qpos_diff:.3e}",
-          substep_diff_over_bound=f"{ratio:.3f}")
-
-    # the main path, counted: counters at 0 just before, read just after
-    t0 = time.time()
-    fleet_fk.fleet_fk.launches = 0
-    pallas_linalg.spd_inverse_bt.launches = 0
+def count_launches(fn):
+    """Run fn() with every kernel's launch count at 0 just before; returns
+    (fn's result, seconds, {kernel: launches just after})."""
+    wrappers = {"K1": fleet_kernel.pd_substep, "K2": fleet_fk.fleet_fk,
+                "K3": pallas_linalg.spd_inverse_bt}
+    for w in wrappers.values():
+        w.launches = 0
     torch.cuda.synchronize()
-    t_eval = time.time()
-    ep_ret, ep_len = eval_checkpoint(CKPT, n_episodes=N_ENVS,
-                                     traj_len=TRAJ_LEN, device="cuda")
+    t0 = time.time()
+    result = fn()
     torch.cuda.synchronize()
-    eval_s = time.time() - t_eval
-    n_fk = fleet_fk.fleet_fk.launches
-    n_inv = pallas_linalg.spd_inverse_bt.launches
-    simrate = 50
-    # K3: once per substep; K2: once per substep, once per step for the
-    # pre-step foot positions, once per step for the auto-reset fleet,
-    # once for the initial reset
-    want_inv = TRAJ_LEN * simrate
-    want_fk = TRAJ_LEN * (simrate + 2) + 1
+    return result, time.time() - t0, {k: w.launches
+                                      for k, w in wrappers.items()}
+
+
+def check_counts(name, got, want):
+    if got != want:
+        raise AssertionError(f"{name}: launch counts {got}, want {want}")
+
+
+def run_eval(physics, traj_len, seed):
+    """The deterministic evaluation of CKPT on one tier, counted."""
+    (ep_ret, ep_len), secs, n = count_launches(lambda: eval_checkpoint(
+        CKPT, n_episodes=N_ENVS, traj_len=traj_len, device="cuda",
+        seed=seed, physics=physics))
     if not (np.isfinite(ep_ret) and np.isfinite(ep_len) and ep_len > 0):
-        raise AssertionError(f"eval gave return {ep_ret}, length {ep_len}")
-    if (n_inv, n_fk) != (want_inv, want_fk):
-        raise AssertionError(f"launch counts K3 {n_inv} (want {want_inv}), "
-                             f"K2 {n_fk} (want {want_fk})")
-    phase("eval", t0, mean_return=f"{ep_ret:.4f}",
-          mean_length=f"{ep_len:.2f}",
-          ms_per_policy_step=f"{eval_s / TRAJ_LEN * 1e3:.2f}",
-          k3_launches=n_inv, k2_launches=n_fk)
+        raise AssertionError(f"eval ({physics}, seed {seed}) gave return "
+                             f"{ep_ret}, length {ep_len}")
+    return ep_ret, ep_len, secs, n
 
-    t0 = time.time()
+
+def step_1024(dev):
+    """ms per policy step of the 1024-env fleet on the megakernel tier, and
+    launches and device busy time of one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
     from apex_tpu_torch.agents.rollout import init_runner, rollout_scan
 
     exp = load_experiment(CKPT, device="cuda")
@@ -365,8 +563,6 @@ def main() -> int:
                 tuple(runner.obs.shape) != (FLEET, env.observation_size):
             raise AssertionError("fleet-1024 rollout gave non-finite rewards "
                                  "or a wrong observation shape")
-        from torch.profiler import ProfilerActivity, profile
-
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             rollout_scan(env, policy_fn, runner, gen_dev, 1, TRAJ_LEN)
@@ -374,36 +570,185 @@ def main() -> int:
     events = prof.events()
     on_card = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = len(on_card)
     busy_ms = sum(e.time_range.elapsed_us() for e in on_card) / 1e3
     launch_calls = sum(1 for e in events if e.name in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
         "cuLaunchKernelEx"))
-    phase("step_1024", t0, ms_per_policy_step=f"{step_ms:.2f}",
-          device_kernels_per_policy_step=kernels,
-          launch_calls_per_policy_step=launch_calls,
-          launches_per_substep=f"{launch_calls / simrate:.1f}",
-          device_busy_ms_per_policy_step=f"{busy_ms:.2f}",
-          device_idle_share=f"{1.0 - busy_ms / step_ms:.4f}")
+    return dict(ms_per_policy_step=f"{step_ms:.2f}",
+                device_kernels_per_policy_step=len(on_card),
+                launch_calls_per_policy_step=launch_calls,
+                launches_per_substep=f"{launch_calls / SIMRATE:.1f}",
+                device_busy_ms_per_policy_step=f"{busy_ms:.2f}",
+                device_idle_share=f"{1.0 - busy_ms / step_ms:.4f}")
+
+
+# the training run: the mk4_hardened settings (experiment.pkl), 2
+# iterations
+TRAIN_STEPS, TRAIN_ITR, TRAIN_NORM_STEPS = 32768, 2, 10000
+
+
+def train_args(logdir: str):
+    return [
+        "ppo", "--env_name", "Cassie-v0", "--dyn_random", "--mirror",
+        "--simrate", str(SIMRATE), "--command_profile", "clock",
+        "--input_profile", "full", "--reward", "early_clock", "--estimator",
+        "firmware", "--std_dev", "-1.5", "--num_procs", str(FLEET),
+        "--num_steps", str(TRAIN_STEPS), "--max_traj_len", str(TRAJ_LEN),
+        "--n_itr", str(TRAIN_ITR), "--input_norm_steps",
+        str(TRAIN_NORM_STEPS), "--seed", "0", "--logdir", logdir]
+
+
+def train(dev):
+    """Two PPO iterations through the CLI, in-process, counted; then the
+    run directory loads back in the port's evaluation."""
+    import glob
+    import os
+
+    from apex_tpu_torch.__main__ import main as cli_main
+
+    logdir = os.path.join("chiprun_out", f"smoke_train_{os.getpid()}")
+    rc, secs, n = count_launches(lambda: cli_main(train_args(logdir)))
+    if rc != 0:
+        raise AssertionError(f"ppo exited with {rc}")
+    # policy steps: the burn-in rollout, then per iteration the training
+    # rollout and the max_traj_len-step evaluation
+    steps = (TRAIN_NORM_STEPS // FLEET
+             + TRAIN_ITR * (TRAIN_STEPS // FLEET + TRAJ_LEN))
+    check_counts("train", n["K1"], SIMRATE * steps)
+    (run_dir,) = glob.glob(os.path.join(logdir, "Cassie-v0", "*"))
+    scalars = {}
+    with open(os.path.join(run_dir, "scalars.csv")) as f:
+        for line in f:
+            tag, step, value = line.rsplit(",", 2)
+            scalars.setdefault(tag, []).append(float(value))
+    for tag in ("Misc/Actor Loss", "Misc/Critic Loss", "Misc/Mirror Loss",
+                "Train/Mean KL Div", "Test/Return", "Train/Return"):
+        if len(scalars[tag]) != TRAIN_ITR \
+                or not np.all(np.isfinite(scalars[tag])):
+            raise AssertionError(f"train: {tag} = {scalars.get(tag)}")
+    sample_s = scalars["Misc/Sample Times"]
+    eval_s = scalars["Misc/Evaluation Times"]
+    ret, ln = eval_checkpoint(run_dir, n_episodes=8, traj_len=10,
+                              device="cuda")
+    if not (np.isfinite(ret) and ln > 0):
+        raise AssertionError(f"reloaded run gave return {ret}, length {ln}")
+    return dict(
+        seconds=f"{secs:.1f}", k1_launches=n["K1"], k2_launches=n["K2"],
+        k3_launches=n["K3"], policy_steps=steps,
+        sample_update_s_per_itr=[f"{x:.2f}" for x in sample_s],
+        eval_s_per_itr=[f"{x:.2f}" for x in eval_s],
+        env_steps_per_s=[f"{TRAIN_STEPS / x:.0f}" for x in sample_s],
+        test_return=[f"{x:.4f}" for x in scalars["Test/Return"]],
+        kl=[f"{x:.5f}" for x in scalars["Train/Mean KL Div"]],
+        actor_loss=[f"{x:.5f}" for x in scalars["Misc/Actor Loss"]],
+        mirror_loss=[f"{x:.6f}" for x in scalars["Misc/Mirror Loss"]],
+        reloaded_return=f"{ret:.4f}")
+
+
+def main() -> int:
+    t0 = time.time()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = card_line()
+    phase("device", t0, card=f"'{card}'", torch=torch.__version__,
+          cuda=torch.version.cuda, python=sys.version.split()[0],
+          gpu=f"'{torch.cuda.get_device_name(0)}'",
+          count=torch.cuda.device_count())
+
+    t0 = time.time()
+    so = cuda_build.build()
+    build_s = time.time() - t0
+    cuda_build.library()
+    build_log = so.with_suffix(".log").read_text().strip()
+    print(build_log, flush=True)
+    phase("build", t0, library=so.name, build_seconds=f"{build_s:.2f}")
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    t0 = time.time()
+    k3 = check_k3(gen, dev)
+    phase("K3", t0)
+    t0 = time.time()
+    k2 = check_k2(gen, dev)
+    phase("K2", t0)
+    t0 = time.time()
+    k1 = check_k1(gen, dev, build_log)
+    phase("K1", t0)
+
+    t0 = time.time()
+    reset_diff, qvel_diff, qpos_diff, ratio = check_parity(dev)
+    phase("parity", t0, reset_obs_max_diff=f"{reset_diff:.3e}",
+          substep_qvel_max_diff=f"{qvel_diff:.3e}",
+          substep_qpos_max_diff=f"{qpos_diff:.3e}",
+          substep_diff_over_bound=f"{ratio:.3f}")
+
+    # the main path: the megakernel-tier evaluation, counted per seed.
+    # K1: once per substep; K2: once per step for the pre-step foot
+    # positions, once per step for the auto-reset fleet, once for the
+    # initial reset; K3: never
+    t0 = time.time()
+    want = {"K1": TRAJ_LEN * SIMRATE, "K2": TRAJ_LEN * 2 + 1, "K3": 0}
+    rets, lens, eval_n = [], [], None
+    for seed in EVAL_SEEDS:
+        ep_ret, ep_len, secs, n = run_eval("megakernel", TRAJ_LEN, seed)
+        check_counts(f"eval seed {seed}", n, want)
+        eval_n = eval_n or n
+        rets.append(ep_ret)
+        lens.append(ep_len)
+        print(f"  eval seed {seed}: return {ep_ret:.4f}, length "
+              f"{ep_len:.2f}, {secs / TRAJ_LEN * 1e3:.2f} ms per policy "
+              f"step", flush=True)
+    phase("eval", t0, mean_return=f"{np.mean(rets):.4f}",
+          mean_length=f"{np.mean(lens):.2f}",
+          returns=[f"{r:.4f}" for r in rets],
+          k1_launches=eval_n["K1"], k2_launches=eval_n["K2"],
+          k3_launches=eval_n["K3"])
+
+    # the fleet tier at reduced depth: K3 once per substep, K2 once per
+    # substep, twice per step and once at the reset
+    t0 = time.time()
+    ep_ret, ep_len, secs, fleet_n = run_eval("fleet", FLEET_TRAJ_LEN, 42)
+    check_counts("eval_fleet", fleet_n, {
+        "K1": 0, "K2": FLEET_TRAJ_LEN * (SIMRATE + 2) + 1,
+        "K3": FLEET_TRAJ_LEN * SIMRATE})
+    phase("eval_fleet", t0, mean_return=f"{ep_ret:.4f}",
+          mean_length=f"{ep_len:.2f}",
+          ms_per_policy_step=f"{secs / FLEET_TRAJ_LEN * 1e3:.2f}",
+          k3_launches=fleet_n["K3"], k2_launches=fleet_n["K2"])
+
+    t0 = time.time()
+    phase("step_1024", t0, **step_1024(dev))
+
+    t0 = time.time()
+    phase("train", t0, **train(dev))
 
     record = {"kernels": [
+        {"name": "K1 pd_substep", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/fleet_kernel.cu",
+         "replaces": "apex_tpu/physics/fleet_kernel.py:124",
+         "launches": eval_n["K1"], **k1[N_ENVS]},
         {"name": "K3 spd_inverse_bt", "route": "cuda",
          "source": "apex_tpu_torch/csrc/spd_inverse.cu",
          "replaces": "apex_tpu/ops/pallas_linalg.py:36",
-         "launches": n_inv,
+         "launches": fleet_n["K3"],
          "max_abs_err": k3[("cassie", N_ENVS)]["max_abs_err"],
          **k3[("time", N_ENVS)]},
         {"name": "K2 fleet_fk", "route": "cuda",
          "source": "apex_tpu_torch/csrc/fleet_fk.cu",
          "replaces": "apex_tpu/physics/fleet_fk.py:33",
-         "launches": n_fk,
+         "launches": eval_n["K2"],
          "max_abs_err": k2[N_ENVS]["max_abs_err"],
          "ms": k2[N_ENVS]["ms"], "plain_ms": k2[N_ENVS]["plain_ms"],
          "bound_ms": k2[N_ENVS]["bound_ms"],
          "bound_by": k2[N_ENVS]["bound_by"], "library_ms": None},
     ]}
-    at_fleet = {"K3": k3[("time", FLEET)], "K2": {
-        k: v for k, v in k2[FLEET].items() if k != "max_abs_err"}}
+    at_fleet = {"K1": {k: v for k, v in k1[FLEET].items()
+                       if k != "max_abs_err"},
+                "K3": k3[("time", FLEET)],
+                "K2": {k: v for k, v in k2[FLEET].items()
+                       if k != "max_abs_err"}}
     print(f"at B={FLEET}: {json.dumps(at_fleet)}", flush=True)
     print(f"total {time.time() - _T0:.1f} s", flush=True)
     print(card, flush=True)

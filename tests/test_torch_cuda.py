@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from apex_tpu_torch.ops import pallas_linalg
-from apex_tpu_torch.physics import fleet, fleet_fk
+from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
+from chip_smoke import k1_standing_inputs
 
 
 @pytest.fixture
@@ -132,3 +133,65 @@ def test_fleet_step_on_the_card_matches_the_cpu(cuda, seed, ctrl_scale):
     assert ((qvel_g.cpu() - qvel_c).abs() <= 4 * env_v + 1e-6).all()
     assert ((qpos_g.cpu() - qpos_c).abs() <= 4 * env_q + 1e-6).all()
     assert np.isfinite(qvel_g.cpu().numpy()).all()
+
+
+def _k1_inputs(B, seed, cuda):
+    """`chip_smoke.k1_standing_inputs` with a dyn-rand fleet's parameters:
+    near the standing pose, the even envs lowered 2 cm into contact; on the
+    card."""
+    _, _, params = _fleet(B, seed)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return k1_standing_inputs(B, gen, cuda, params)
+
+
+@pytest.mark.parametrize("B", [64, 1000])
+def test_substep_kernel_matches_plain(cuda, B):
+    """K1 against `pd_substep_plain` on the card, each output held
+    elementwise to `fleet_kernel.kernel_bounds`: the kinematic diag rows
+    to 1e-5, qvel, qacc and the contact-force rows to four times the
+    row's spread under 1 +- 1e-7 input changes, qpos to the larger of the
+    two. B = 1000 leaves a partial block of 32 threads."""
+    m = cassie_model()
+    params, qpos, qvel, rows = _k1_inputs(B, B, cuda)
+    before = fleet_kernel.pd_substep.launches
+    got = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    assert fleet_kernel.pd_substep.launches == before + 1
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    ref, spread = fleet_kernel.plain_spread(m, params, qpos, qvel, rows, gen)
+    bounds = fleet_kernel.kernel_bounds(ref, spread)
+    torch.cuda.synchronize()
+    for k, (a, r, bound) in enumerate(zip(got, ref, bounds)):
+        assert torch.isfinite(a).all()
+        d = (a - r).abs()
+        assert (d <= bound).all(), (k, float((d / bound).max()))
+    assert float(ref[3][0:2].abs().max()) > 0      # feet in contact
+
+
+@pytest.mark.parametrize("B", [1, 33, 1000])
+def test_substep_kernel_is_per_env(cuda, B):
+    """One thread per env and no reduction across envs: the first B envs
+    of a 1024-env fleet, launched alone (a partial block), give the same
+    bits as in the full launch."""
+    m = cassie_model()
+    params, qpos, qvel, rows = _k1_inputs(1024, 7, cuda)
+    full = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    cut = lambda x: x[..., :B].contiguous()
+    part = fleet_kernel.pd_substep(
+        m, PhysParams(**{k: cut(v) for k, v in vars(params).items()}),
+        cut(qpos), cut(qvel), cut(rows))
+    for a, b in zip(part, full):
+        assert torch.equal(a, b[:, :B])
+    assert float(part[3][0:2].abs().max()) > 0     # env 0 in contact
+
+
+def test_substep_kernel_refuses_bad_inputs(cuda):
+    m = cassie_model()
+    params, qpos, qvel, rows = _k1_inputs(4, 0, cuda)
+    with pytest.raises(ValueError):                      # not contiguous
+        fleet_kernel.pd_substep(m, params, qpos.T.contiguous().T, qvel, rows)
+    with pytest.raises(ValueError):                      # float64
+        fleet_kernel.pd_substep(m, params, qpos.double(), qvel, rows)
+    with pytest.raises(ValueError):                      # wrong rows
+        fleet_kernel.pd_substep(m, params, qpos, qvel, rows[:40])
