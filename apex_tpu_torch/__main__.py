@@ -100,7 +100,11 @@ def main(argv=None) -> int:
                 "apex_tpu_torch yet")
         from apex_tpu_torch.agents.ppo import run_experiment
 
-        run_experiment(args)
+        # the run directory's name hashes the namespace and experiment.pkl
+        # stores it: keep them apex.py's, without the subcommand and device
+        device = args.device
+        del args.cmd, args.device
+        run_experiment(args, device=device)
         return 0
 
     from apex_tpu_torch.runtime.evaluate import eval_checkpoint

@@ -423,15 +423,16 @@ class PPO:
         return state
 
 
-def run_experiment(args):
+def run_experiment(args, device=None):
     """CLI entry (reference rl/algos/ppo.py:507-584): env and nets,
-    obs-norm burn-in, run directory, training."""
+    obs-norm burn-in, run directory, training. `device` is where the run
+    goes (None: the GPU); `args` holds apex.py's ppo flags only."""
     from apex_tpu_torch.envs.registry import env_factory
     from apex_tpu_torch.runtime.checkpoint import save_checkpoint
     from apex_tpu_torch.runtime.log import create_logger
 
     env = env_factory(
-        args.env_name, device=args.device, simrate=args.simrate,
+        args.env_name, device=device, simrate=args.simrate,
         command_profile=args.command_profile,
         input_profile=args.input_profile, learn_gains=args.learn_gains,
         dynamics_randomization=args.dyn_random, reward=args.reward,

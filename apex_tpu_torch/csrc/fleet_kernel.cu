@@ -17,8 +17,21 @@
 //   connect impulses (dense ne x ne Cholesky, pivot floor 1e-4);
 //   integration; the 44 diagnostic rows.
 //
+// Heightfield terrain (header flag HFIELD, the model's enable_hfield): misc
+// has two more rows (hfield_radius, hfield_active) and each env brings its
+// own 32 x 32 terrain table as (1024, B) rows, row ix * 32 + iy. An env with
+// hfield_active > 0.5 takes each contact's depth and normal from the table
+// instead of the plane. The TPU kernel contracts the table with tent
+// weights because Mosaic cannot gather per lane; here the thread reads the
+// four corners of its cell and combines them in the contraction's order
+// (x first, then y), which gives the contraction's values: its other terms
+// are exact zeros. Flat models and inactive envs run the plane code as
+// before. Of the env's 4 KB table column, each contact reads the 4 floats
+// of its cell's corners and nothing else.
+//
 // What bounds it. Bytes: (263 input + 143 output) rows x 4 B per env, 1.66
-// MB at B = 1024, 0.5 us at 3.35 TB/s. Operations: about 1e5 FP32 per env
+// MB at B = 1024, 0.5 us at 3.35 TB/s (with a terrain table 1,289 input
+// rows, 5.87 MB, 1.75 us). Operations: about 1e5 FP32 per env
 // (chip_smoke.py counts them from these loops), 0.1 GFLOP at B = 1024, 1.5
 // us at 67 TFLOP/s. In truth neither: one thread per env makes a serial
 // chain of ~1e5 dependent operations through per-thread scratch, and at B =
@@ -49,6 +62,7 @@
 //   O_EQ      per connect [body1, body2, support start, support length]
 //   O_EQSUP   the supports (body1's ancestry, then body2's new dofs)
 //   O_EQU     union of the supports (ascending);  O_LCON/O_RCON foot contacts
+//   (HFIELD, a scalar of the header: 1 for a heightfield model)
 //   F_BODY    per body [pos 3, rot 9, inertia 9]
 //   F_JOINT   per joint [axis 3, ref, K 9, K@K 9]   K = skew(axis)
 //   F_ARM per dof armature;  F_CON per contact [offset 3, radius]
@@ -69,10 +83,12 @@ constexpr int kNcon = 32;
 constexpr int kNcb = 16;
 constexpr int kNe = 12;  // 3 rows per connect, 4 connects
 constexpr int kDiagRows = 44;
+constexpr int kHfRes = 32;            // HFIELD_RES of the Python modules
+constexpr float kHfMax = 30.999f;     // the lookup's clip, HFIELD_RES - 1.001
 
 enum Header {
   NB, NV, NQ, NU, NCON, NCB, NEQ, NLIM, NLIN, NBALL, ROOT_ORIGIN, FEET, LF,
-  RF, NLCON, NRCON, NEQU, O_BODY, O_JOINT, O_ANC_PTR, O_ANC, O_BANC_PTR,
+  RF, NLCON, NRCON, NEQU, HFIELD, O_BODY, O_JOINT, O_ANC_PTR, O_ANC, O_BANC_PTR,
   O_BANC, O_BDOF_PTR, O_BDOF, O_DOFBODY, O_CON, O_CB, O_LIM, O_LIMSUP_PTR,
   O_LIMSUP, O_SPRING, O_LIN, O_BALL, O_ACT, O_EQ, O_EQSUP, O_EQU, O_LCON,
   O_RCON, F_BODY, F_JOINT, F_ARM, F_CON, F_LIM, F_SPRING, F_ACT, F_EQ,
@@ -159,6 +175,31 @@ __device__ void ltdl_solve(const float* L, const float* Dinv, float* x,
   }
 }
 
+// Height and gradient of the env's terrain at world (pwx, pwy): the corners
+// of the cell from the table `hf` ((kHfRes^2, B) rows, this env's column
+// b), combined in the order of the TPU kernel's tent-weight contraction.
+__device__ void hfield_bilinear(const float* __restrict__ hf, int b, int B,
+                                const float* fpos, float cellsz, float pwx,
+                                float pwy, float* h, float* dhdx,
+                                float* dhdy) {
+  const float ux = min_nan(max_nan((pwx - fpos[0]) / cellsz + 15.5f, 0.f), kHfMax);
+  const float uy = min_nan(max_nan((pwy - fpos[1]) / cellsz + 15.5f, 0.f), kHfMax);
+  const float i0x = floorf(ux), i0y = floorf(uy);
+  const float fx = ux - i0x, fy = uy - i0y;
+  // a NaN coordinate converts to cell 0; its weights are NaN all the same
+  const int ix = min(max(static_cast<int>(i0x), 0), kHfRes - 2);
+  const int iy = min(max(static_cast<int>(i0y), 0), kHfRes - 2);
+  const float* c = hf + static_cast<size_t>(ix * kHfRes + iy) * B + b;
+  const float h00 = c[0], h01 = c[B];
+  const float h10 = c[static_cast<size_t>(kHfRes) * B];
+  const float h11 = c[static_cast<size_t>(kHfRes + 1) * B];
+  const float acc0 = h00 * (1.f - fx) + h10 * fx;  // row iy, x contracted
+  const float acc1 = h01 * (1.f - fx) + h11 * fx;  // row iy + 1
+  *h = acc0 * (1.f - fy) + acc1 * fy;
+  *dhdx = ((h10 - h00) * (1.f - fy) + (h11 - h01) * fy) / cellsz;
+  *dhdy = (acc1 - acc0) / cellsz;
+}
+
 __device__ void mat2quat(const float* R, float* q) {
   const float m00 = R[0], m01 = R[1], m02 = R[2];
   const float m10 = R[3], m11 = R[4], m12 = R[5];
@@ -203,6 +244,7 @@ pd_substep_kernel(const float* __restrict__ qpos_in,
                   const float* __restrict__ mass_in,
                   const float* __restrict__ ipos_in,
                   const float* __restrict__ misc,
+                  const float* __restrict__ hfield,
                   float* __restrict__ qpos_out, float* __restrict__ qvel_out,
                   float* __restrict__ qacc_out, float* __restrict__ diag_out,
                   const int* __restrict__ it, const float* __restrict__ ft,
@@ -511,8 +553,12 @@ pd_substep_kernel(const float* __restrict__ qpos_in,
     cross3(uq, uv, uuv);
     for (int k = 0; k < 3; ++k) n_w[k] = vz[k] + 2.f * (fq[0] * uv[k] + uuv[k]);
   }
+  const float fpos[3] = {ROW(misc, 5), ROW(misc, 6), ROW(misc, 7)};
   float floor_p[3];
-  for (int k = 0; k < 3; ++k) floor_p[k] = ROW(misc, 5 + k) - origin[k];
+  for (int k = 0; k < 3; ++k) floor_p[k] = fpos[k] - origin[k];
+  // terrain of a heightfield model, for this env when it is active
+  const bool on_terrain = it[HFIELD] && ROW(misc, 15) > 0.5f;
+  const float cellsz = on_terrain ? 2.f * ROW(misc, 14) / (kHfRes - 1) : 0.f;
 
   float qfrc_con[kNv];
   for (int d = 0; d < nv; ++d) qfrc_con[d] = 0.f;
@@ -560,9 +606,23 @@ pd_substep_kernel(const float* __restrict__ qpos_in,
           if (off[k] != 0.f) t = t + R[3 * a + k] * off[k];
         p[a] = xpos[3 * cb + a] + t;
       }
-      const float depth =
+      float depth =
           radius - ((p[0] - floor_p[0]) * n_w[0] + (p[1] - floor_p[1]) * n_w[1] +
                     (p[2] - floor_p[2]) * n_w[2]);
+      const float* nc = n_w;
+      float n_h[3];
+      if (on_terrain) {
+        const float pw[3] = {p[0] + origin[0], p[1] + origin[1], p[2] + origin[2]};
+        float hh, dhdx, dhdy;
+        hfield_bilinear(hfield, b, B, fpos, cellsz, pw[0], pw[1], &hh, &dhdx,
+                        &dhdy);
+        const float hnorm = sqrtf(dhdx * dhdx + dhdy * dhdy + 1.f);
+        n_h[0] = -dhdx / hnorm;
+        n_h[1] = -dhdy / hnorm;
+        n_h[2] = 1.f / hnorm;
+        depth = radius + (fpos[2] + hh) - pw[2];
+        nc = n_h;
+      }
       const float* bv = bvel + 6 * cb;
       float wxp[3], vp[3];
       cross3(bv, p, wxp);
@@ -593,7 +653,6 @@ pd_substep_kernel(const float* __restrict__ qpos_in,
           G[3 * r + cl] = PLaaPT_t[3 * cl + r] + PLal[3 * r + cl] +
                           PLal[3 * cl + r] + Lb[6 * (3 + r) + 3 + cl];
 
-      const float* nc = n_w;
       float Gn[3];
       for (int r = 0; r < 3; ++r)
         Gn[r] = G[3 * r] * nc[0] + G[3 * r + 1] * nc[1] + G[3 * r + 2] * nc[2];
@@ -878,14 +937,15 @@ pd_substep_kernel(const float* __restrict__ qpos_in,
 extern "C" int apex_pd_substep(const float* qpos, const float* qvel,
                                const float* cmd, const float* damp,
                                const float* mass, const float* ipos,
-                               const float* misc, float* qpos_out,
+                               const float* misc, const float* hfield,
+                               float* qpos_out,
                                float* qvel_out, float* qacc_out,
                                float* diag_out, const int* itab,
                                const float* ftab, int B, void* stream) {
   constexpr int kThreads = 32;
   const int blocks = (B + kThreads - 1) / kThreads;
   pd_substep_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      qpos, qvel, cmd, damp, mass, ipos, misc, qpos_out, qvel_out, qacc_out,
-      diag_out, itab, ftab, B);
+      qpos, qvel, cmd, damp, mass, ipos, misc, hfield, qpos_out, qvel_out,
+      qacc_out, diag_out, itab, ftab, B);
   return static_cast<int>(cudaGetLastError());
 }

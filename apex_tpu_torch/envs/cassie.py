@@ -1,10 +1,12 @@
-"""CassieEnv: the 40 Hz bipedal-locomotion environment, default config.
+"""CassieEnv: the 40 Hz bipedal-locomotion environment.
 
-Port of `apex_tpu/envs/cassie.py` for the configuration the main path runs
-(Cassie-v0 with its defaults, as `curves/cassie_mk4_hardened_ckpt` was
-trained): clock commands, full observations, dynamics randomization, the
-firmware-estimator lag, the early_clock reward and flat ground. Any other
-configuration raises NotImplementedError.
+Port of `apex_tpu/envs/cassie.py` for the configurations of the committed
+checkpoints the port runs: clock commands, full observations, the
+firmware-estimator lag, dynamics randomization on or off, any simrate, the
+early_clock reward or one of the speedmatch family (`rewards/speedmatch.py`,
+e.g. mk5c's `5k_speed_reward`), and flat ground or heightfield terrain
+("noise", "hill", "steps": the JAX env's terrain bank, drawn per episode).
+Any other configuration raises NotImplementedError.
 
 The env is a fleet: every state field is batch-last (rows, B), the
 physics runs through the PD scan of `physics/cassie_sim.py` (K1 or the
@@ -41,12 +43,17 @@ from apex_tpu_torch.rewards.clock import (
     early_clock_reward,
     speed_to_durations,
 )
+from apex_tpu_torch.rewards.speedmatch import (
+    SPEEDMATCH_FUNCS,
+    SpeedmatchInputs,
+)
 from apex_tpu_torch.utils.quaternion import (
     euler2quat,
     quat_inverse,
     quat_mul,
     quat_rotate,
 )
+from apex_tpu_torch.utils.terrain import terrain_bank
 
 # global flat foot orientation (reference cassie.py:121)
 NEUTRAL_FOOT_ORIENT = np.array(
@@ -73,8 +80,8 @@ _DAMP_SCALED[30] = False           # right plantar rod
 @dataclasses.dataclass
 class CassieEnvState:
     """Fleet state, batch-last. The JAX state's remaining fields
-    (obs_history, prev_action, prev_torque, the swing-apex flags,
-    phase_add) feed only configurations the port does not run."""
+    (obs_history, phase_add) feed only configurations the port does not
+    run."""
     phys: CassiePhysState
     params: PhysParams
     clock: GaitClock
@@ -89,6 +96,13 @@ class CassieEnvState:
     stance_mode: torch.Tensor       # (3, B) one-hot [grounded, aerial, zero]
     motor_enc_noise: torch.Tensor   # (10, B)
     joint_enc_noise: torch.Tensor   # (6, B)
+    prev_action: torch.Tensor       # (10, B)
+    prev_torque: torch.Tensor       # (10, B)
+    # swing-apex flags: set when a foot clears 0.19 m, cleared on contact
+    # (reference cassie_footdist_env.py:313-320); the speedmatch rewards
+    # update them, early_clock leaves them False
+    l_high: torch.Tensor            # (B,) bool
+    r_high: torch.Tensor            # (B,) bool
 
 
 class ResetNoise(NamedTuple):
@@ -104,6 +118,7 @@ class ResetNoise(NamedTuple):
     pitch: torch.Tensor        # (B,)
     motor_enc: torch.Tensor    # (10, B) encoder offsets
     joint_enc: torch.Tensor    # (6, B)
+    terrain_idx: torch.Tensor = None   # (B,) int64 table of the bank
 
 
 class StepNoise(NamedTuple):
@@ -118,8 +133,8 @@ class StepNoise(NamedTuple):
 
 @dataclasses.dataclass
 class CassieEnv(Env):
-    """Static config mirrors `apex_tpu.envs.cassie.CassieEnv`; only the
-    defaults are implemented."""
+    """Static config mirrors `apex_tpu.envs.cassie.CassieEnv`; the switches
+    the port runs are listed in the module docstring."""
     simrate: int = 50
     command_profile: str = "clock"
     input_profile: str = "full"
@@ -131,6 +146,7 @@ class CassieEnv(Env):
     estimator_tau: float = 0.012
     estimator_noise: float = 0.0
     terrain: str = "flat"
+    terrain_amplitude: float = 0.05
     max_speed: float = 4.0
     min_speed: float = -0.3
     max_side_speed: float = 0.3
@@ -158,23 +174,31 @@ class CassieEnv(Env):
         unsupported = {
             k: getattr(self, k) for k, v in (
                 ("command_profile", "clock"), ("input_profile", "full"),
-                ("dynamics_randomization", True), ("learn_gains", False),
-                ("reward", "early_clock"), ("history", 0),
+                ("learn_gains", False), ("history", 0),
                 ("estimator", "firmware"), ("estimator_noise", 0.0),
-                ("terrain", "flat"), ("orient_jump_prob", 0.0),
-                ("speed_phase_add", False))
+                ("orient_jump_prob", 0.0), ("speed_phase_add", False))
             if getattr(self, k) != v}
+        if self.reward != "early_clock" and self.reward not in \
+                SPEEDMATCH_FUNCS:
+            unsupported["reward"] = self.reward
+        if self.terrain not in ("flat", "noise", "hill", "steps"):
+            unsupported["terrain"] = self.terrain
         if unsupported:
             raise NotImplementedError(
-                "apex_tpu_torch ports the default Cassie-v0 configuration "
-                "only (clock commands, full observations, dyn-rand, "
-                "firmware estimator without noise, early_clock reward, flat "
-                f"ground); not yet: {unsupported}")
+                "apex_tpu_torch ports Cassie-v0 with clock commands, full "
+                "observations, the firmware estimator without noise, the "
+                "early_clock or a speedmatch reward, flat or heightfield "
+                f"ground; not yet: {unsupported}")
         if self.pd_tier not in (None, *PD_TIERS):
             raise ValueError(f"pd_tier must be None or one of {PD_TIERS}, "
                              f"got {self.pd_tier!r}")
         self.device = resolve_device(self.device)
-        self.model = cassie_model()
+        self.model = cassie_model(enable_hfield=self.terrain != "flat")
+        # the JAX env's 64-table terrain bank (envs/cassie.py:209-229)
+        self._terrain_bank = (
+            None if self.terrain == "flat" else
+            terrain_bank(self.terrain, self.terrain_amplitude, self.device))
+        self._speedmatch = SPEEDMATCH_FUNCS.get(self.reward)
         self.observation_size = 46 + 4
         self.action_size = 10
         self.mirrored_acts = MIRROR_ACTS
@@ -201,6 +225,9 @@ class CassieEnv(Env):
         m, dev = self.model, self.device
         u = lambda *shape, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(
             shape + (batch,), generator=generator, device=dev)
+        terrain_idx = None if self._terrain_bank is None else torch.randint(
+            0, self._terrain_bank.shape[0], (batch,), generator=generator,
+            device=dev)
         return ResetNoise(
             speed=u(lo=self.min_speed, hi=self.max_speed),
             side_speed=u(lo=self.min_side_speed, hi=self.max_side_speed),
@@ -211,7 +238,8 @@ class CassieEnv(Env):
             roll=u(lo=-self.max_roll_incline, hi=self.max_roll_incline),
             pitch=u(lo=-self.max_pitch_incline, hi=self.max_pitch_incline),
             motor_enc=u(10, lo=-self.encoder_noise, hi=self.encoder_noise),
-            joint_enc=u(6, lo=-self.encoder_noise, hi=self.encoder_noise))
+            joint_enc=u(6, lo=-self.encoder_noise, hi=self.encoder_noise),
+            terrain_idx=terrain_idx)
 
     def sample_step_noise(self, generator: torch.Generator,
                           batch: int) -> StepNoise:
@@ -230,19 +258,34 @@ class CassieEnv(Env):
 
     # ------------------------------------------------------------------
     def _sample_params(self, noise: ResetNoise):
-        """Dynamics randomization (reference reset, cassie.py:567-657)."""
+        """Dynamics randomization (reference reset, cassie.py:567-657) and
+        the episode's terrain table: (params, motor and joint encoder
+        offsets). Without dyn-rand, the default params and no encoder
+        offsets (envs/cassie.py:343-344)."""
         B = noise.speed.shape[-1]
-        default = PhysParams.from_model(self.model, B, self.device)
-        damping = torch.where(self._damp_scaled,
-                              default.dof_damping * noise.damp_scale,
-                              default.dof_damping)
-        mass = default.body_mass * noise.mass_scale
-        floor_quat = euler2quat(z=torch.zeros_like(noise.pitch),
-                                y=noise.pitch, x=noise.roll)
-        return dataclasses.replace(
-            default, body_mass=torch.clamp(mass, min=0.0),
-            dof_damping=torch.clamp(damping, min=0.0),
-            friction=noise.friction, floor_quat=floor_quat)
+        params = PhysParams.from_model(self.model, B, self.device)
+        menc, jenc = noise.motor_enc, noise.joint_enc
+        if self.dynamics_randomization:
+            damping = torch.where(self._damp_scaled,
+                                  params.dof_damping * noise.damp_scale,
+                                  params.dof_damping)
+            mass = params.body_mass * noise.mass_scale
+            floor_quat = euler2quat(z=torch.zeros_like(noise.pitch),
+                                    y=noise.pitch, x=noise.roll)
+            params = dataclasses.replace(
+                params, body_mass=torch.clamp(mass, min=0.0),
+                dof_damping=torch.clamp(damping, min=0.0),
+                friction=noise.friction, floor_quat=floor_quat)
+        else:
+            menc, jenc = torch.zeros_like(menc), torch.zeros_like(jenc)
+        if self._terrain_bank is not None:
+            # a table of the bank per env (envs/cassie.py:345-353)
+            params = dataclasses.replace(
+                params,
+                hfield=self._terrain_bank[noise.terrain_idx].permute(
+                    1, 2, 0).contiguous(),
+                hfield_active=torch.ones_like(params.hfield_active))
+        return params, menc, jenc
 
     def reset(self, noise: ResetNoise):
         B = noise.speed.shape[-1]
@@ -254,16 +297,20 @@ class CassieEnv(Env):
         # random starting phase (cassie.py:561)
         phase = torch.floor(noise.phase_u * torch.floor(clock.phaselen + 1.0))
         phys = CassiePhysState.standing(B, dev)
-        params = self._sample_params(noise)
+        params, menc, jenc = self._sample_params(noise)
         zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+        no = torch.zeros((B,), dtype=torch.bool, device=dev)
         state = CassieEnvState(
             phys=phys, params=params, clock=clock, phase=phase,
             counter=zi, time=zi.clone(), speed=noise.speed,
             side_speed=noise.side_speed,
             orient_add=torch.zeros((B,), device=dev),
             swing_duration=swing, stance_duration=stance,
-            stance_mode=mode.contiguous(), motor_enc_noise=noise.motor_enc,
-            joint_enc_noise=noise.joint_enc)
+            stance_mode=mode.contiguous(), motor_enc_noise=menc,
+            joint_enc_noise=jenc,
+            prev_action=torch.zeros((self.action_size, B), device=dev),
+            prev_torque=torch.zeros((10, B), device=dev),
+            l_high=no, r_high=no.clone())
         # populate the estimator from FK (the reference reset ends with
         # one step_pd to refresh cassie_state, cassie.py:665)
         est = estimate_state(self.model, phys,
@@ -296,9 +343,9 @@ class CassieEnv(Env):
         foot_vel_seq = (diag_seq.foot_pos - prev_pos_seq) / m.timestep
 
         fq = diag_seq.foot_quat                           # (L, 2, 4, B)
-        orient = 1.0 - torch.sum(fq * self._neutral_foot, dim=2) ** 2
-        l_orient_cost, r_orient_cost = orient.mean(dim=0)  # (B,) each
-        l_foot_frc, r_foot_frc = diag_seq.foot_frc_z.mean(dim=0)
+        orient_seq = 1.0 - torch.sum(fq * self._neutral_foot, dim=2) ** 2
+        frc_seq = diag_seq.foot_frc_z                     # (L, 2, B)
+        motor_torque = diag_seq.motor_torque[-1]
 
         # phase advance (cassie.py:447-453)
         time_ = state.time + 1
@@ -312,14 +359,32 @@ class CassieEnv(Env):
         est = estimate_state(
             m, dataclasses.replace(phys, qvel=ema_v, qacc=ema_a),
             _last_substep(diag_seq))
-        ri = RewardInputs(
-            qpos=phys.qpos, qvel=phys.qvel,
-            l_foot_frc=l_foot_frc, r_foot_frc=r_foot_frc,
-            l_foot_vel=foot_vel_seq[-1, 0], r_foot_vel=foot_vel_seq[-1, 1],
-            l_foot_orient_cost=l_orient_cost,
-            r_foot_orient_cost=r_orient_cost,
-            speed=state.speed, phase=phase)
-        reward = early_clock_reward(state.clock, ri)
+        # the swing-apex flags feed only the speedmatch rewards; early_clock
+        # leaves them at the reset's False
+        l_high, r_high = state.l_high, state.r_high
+        if self._speedmatch is not None:
+            # swing-apex flags (cassie_footdist_env.py:313-320), after every
+            # substep
+            lz, rz = diag_seq.foot_pos[:, 0, 2], diag_seq.foot_pos[:, 1, 2]
+            l_high_seq = _flag_seq(l_high, frc_seq[:, 0] > 0, lz >= 0.19)
+            r_high_seq = _flag_seq(r_high, frc_seq[:, 1] > 0, rz >= 0.19)
+            l_high, r_high = l_high_seq[-1], r_high_seq[-1]
+            si = self._speedmatch_inputs(
+                state, act, phys, est, diag_seq, qvel_seq, qacc_seq,
+                foot_vel_seq, orient_seq, l_high_seq, r_high_seq, time_)
+            reward = self._speedmatch(si)
+        else:
+            l_orient_cost, r_orient_cost = orient_seq.mean(dim=0)
+            l_foot_frc, r_foot_frc = frc_seq.mean(dim=0)
+            ri = RewardInputs(
+                qpos=phys.qpos, qvel=phys.qvel,
+                l_foot_frc=l_foot_frc, r_foot_frc=r_foot_frc,
+                l_foot_vel=foot_vel_seq[-1, 0],
+                r_foot_vel=foot_vel_seq[-1, 1],
+                l_foot_orient_cost=l_orient_cost,
+                r_foot_orient_cost=r_orient_cost,
+                speed=state.speed, phase=phase)
+            reward = early_clock_reward(state.clock, ri)
 
         # termination (cassie.py:462-465) and the finite-state guard
         height = phys.qpos[2]
@@ -340,16 +405,134 @@ class CassieEnv(Env):
 
         new_state = dataclasses.replace(
             state, phys=phys, phase=phase, counter=counter, time=time_,
-            speed=speed, side_speed=side_speed, orient_add=orient_add)
+            speed=speed, side_speed=side_speed, orient_add=orient_add,
+            prev_action=act, prev_torque=motor_torque,
+            l_high=l_high, r_high=r_high)
         return new_state, self._build_obs(new_state, est), reward, terminated
+
+    def _speedmatch_inputs(self, state, act, phys, est, diag_seq, qvel_seq,
+                           qacc_seq, foot_vel_seq, orient_seq, l_high_seq,
+                           r_high_seq, time_):
+        """The tracking layer of the research envs (cassie_mininput_env.py:
+        418-521, cassie_footdist_env.py:313-387): per-substep cost
+        sequences reduced by their mean over the substeps, and the inputs
+        of the speedmatch rewards (envs/cassie.py:537-690, :735-782)."""
+        m = self.model
+        prev_action = torch.where(state.time == 0, act, state.prev_action)
+        L = qvel_seq.shape[0]
+        # smooth foot-height clocks, constant over the control step
+        pl1 = state.clock.phaselen + 1.0
+        one2one = 0.5 * (torch.cos(2 * np.pi / pl1 * state.phase) + 1.0)
+        zero2zero = 0.5 * (torch.cos(
+            2 * np.pi / pl1 * (state.phase - pl1 / 2.0)) + 1.0)
+        des_height = 0.15
+        first_half = state.phase < state.clock.phaselen / 2.0
+
+        hiproll_seq = (torch.abs(qvel_seq[:, 6])
+                       + torch.abs(qvel_seq[:, 19])) / 3.0
+        hipyaw_seq = torch.abs(qvel_seq[:, 7]) + torch.abs(qvel_seq[:, 20])
+        lz, rz = diag_seq.foot_pos[:, 0, 2], diag_seq.foot_pos[:, 1, 2]
+        l_frc_seq = diag_seq.foot_frc_z[:, 0]
+        r_frc_seq = diag_seq.foot_frc_z[:, 1]
+        norm3 = lambda v: torch.sqrt(torch.sum(v * v, dim=1))
+        l_ground = lz ** 2 + norm3(foot_vel_seq[:, 0])
+        l_height = 40.0 * (des_height - lz) ** 2
+        r_ground = rz ** 2 + norm3(foot_vel_seq[:, 1])
+        r_height = 40.0 * (des_height - rz) ** 2
+        l_smooth_seq = zero2zero * l_height + one2one * l_ground
+        r_smooth_seq = one2one * r_height + zero2zero * r_ground
+        # var quirk: one2one_var, zero2zero_var = 1, 0
+        # (cassie_mininput_env.py:420); no loaded clock: both gates 0
+        l_var_seq, r_var_seq = l_ground, r_height
+        l_ck_seq, r_ck_seq = l_ground, r_ground
+        # force/high-gated costs use des_height 0.2, incl. the upstream
+        # quirk of gating the left lift branch on r_high
+        # (cassie_footdist_env.py:343-387)
+        l_height2 = 40.0 * (0.2 - lz) ** 2
+        r_height2 = 40.0 * (0.2 - rz) ** 2
+        l_td = 40.0 * lz ** 2 * foot_vel_seq[:, 0, 2] ** 2
+        r_td = 40.0 * rz ** 2 * foot_vel_seq[:, 1, 2] ** 2
+        r_cost_seq = torch.where(l_frc_seq == 0.0, r_ground,
+                                 torch.where(~r_high_seq, r_height2, r_td))
+        l_cost_seq = torch.where(r_frc_seq == 0.0, l_ground,
+                                 torch.where(~r_high_seq, l_height2, l_td))
+        l_even_seq = torch.where(first_half,
+                                 torch.where(~l_high_seq, l_height2, l_td),
+                                 l_ground)
+        r_even_seq = torch.where(first_half, r_ground,
+                                 torch.where(~r_high_seq, r_height2, r_td))
+
+        # torque costs (cassie_mininput_env.py:512-521); the first substep
+        # of an episode has no previous torque and contributes 0
+        tau_seq = diag_seq.motor_torque                   # (L, 10, B)
+        prev_tau_seq = torch.cat([state.prev_torque[None], tau_seq[:-1]])
+        have_prev = torch.ones_like(tau_seq[:, 0], dtype=torch.bool)
+        have_prev[0] = state.time > 0
+        norm_sq = lambda x: torch.sqrt(torch.sum((x * x) ** 2, dim=1))
+        smooth_seq = torch.where(
+            have_prev, 1e-4 * norm_sq(tau_seq - prev_tau_seq), 0.0)
+        torque_seq = 6e-5 * norm_sq(tau_seq)
+        l_ry_seq = zero2zero * 6e-3 * norm_sq(tau_seq[:, 0:2])
+        r_ry_seq = one2one * 6e-3 * norm_sq(tau_seq[:, 5:7])
+        pel_stable_seq = 0.05 * (torch.abs(qvel_seq[:, 3:6]).sum(dim=1)
+                                 + torch.abs(qacc_seq[:, 0:3]).sum(dim=1))
+
+        (l_orient, r_orient, hiproll_cost, hipyaw_cost, l_smooth_cost,
+         r_smooth_cost, l_var_cost, r_var_cost, l_ck_cost, r_ck_cost,
+         l_foot_cost, r_foot_cost, l_even_cost, r_even_cost, torque_cost,
+         smooth_cost, l_ry_cost, r_ry_cost, pel_stable_cost) = torch.stack([
+             orient_seq[:, 0], orient_seq[:, 1], hiproll_seq, hipyaw_seq,
+             l_smooth_seq, r_smooth_seq, l_var_seq, r_var_seq, l_ck_seq,
+             r_ck_seq, l_cost_seq, r_cost_seq, l_even_seq, r_even_seq,
+             torque_seq, smooth_seq, l_ry_seq, r_ry_seq,
+             pel_stable_seq]).mean(dim=1)
+
+        pair = lambda x, i, j: torch.stack([x[i], x[j]])
+        hiproll_act = 2.0 * torch.linalg.vector_norm(
+            pair(prev_action, 0, 5) - pair(act, 0, 5), dim=0)
+        hipyaw_act = 2.0 * torch.linalg.vector_norm(
+            pair(prev_action, 1, 6) - pair(act, 1, 6), dim=0)
+        # foot-orient scale of the full-observation research envs, 20x
+        # (cassie_mininput_env.py:426)
+        oscale = 20.0
+        foot_pos = diag_seq.foot_pos[-1]
+        return SpeedmatchInputs(
+            qpos=phys.qpos, qvel=phys.qvel, speed=state.speed,
+            orient_add=state.orient_add,
+            pelvis_orientation=est.pelvis_orientation,
+            l_foot_orient_cost=l_orient, r_foot_orient_cost=r_orient,
+            hiproll_cost=hiproll_cost, hiproll_act=hiproll_act,
+            hipyaw_vel=hipyaw_cost, hipyaw_act=hipyaw_act,
+            l_foot_cost_smooth=l_smooth_cost,
+            r_foot_cost_smooth=r_smooth_cost,
+            side_speed=state.side_speed, time=time_,
+            l_foot_orient=oscale * l_orient,
+            r_foot_orient=oscale * r_orient,
+            l_foot_cost=l_foot_cost, r_foot_cost=r_foot_cost,
+            l_foot_cost_even=l_even_cost, r_foot_cost_even=r_even_cost,
+            l_foot_cost_var=l_var_cost, r_foot_cost_var=r_var_cost,
+            l_foot_cost_clock=l_ck_cost, r_foot_cost_clock=r_ck_cost,
+            torque_cost=torque_cost, smooth_cost=smooth_cost,
+            pel_stable=pel_stable_cost,
+            left_rollyaw_torque_cost=l_ry_cost,
+            right_rollyaw_torque_cost=r_ry_cost,
+            foot_pos=foot_pos, lfoot_vel=foot_vel_seq[-1, 0],
+            rfoot_vel=foot_vel_seq[-1, 1],
+            l_high=l_high_seq[-1].to(foot_pos.dtype),
+            r_high=r_high_seq[-1].to(foot_pos.dtype),
+            # reward-time instantaneous forces (the reference rewards call
+            # sim.get_foot_forces() after the substep loop)
+            l_foot_frc=diag_seq.foot_frc_z[-1, 0],
+            r_foot_frc=diag_seq.foot_frc_z[-1, 1],
+            pelvis_accel=est.pelvis_trans_accel,
+            action=act[:10], prev_action=prev_action[:10])
 
     def checkpoint_leaves(self, state: CassieEnvState,
                           obs: torch.Tensor):
         """The JAX CassieEnvState's leaves (envs/cassie.py:120-145), batch-
-        first. The fields the port does not carry hold what the default
-        configuration leaves in them: zero previous action and torque, the
-        current observation as the one-frame history, no swing-apex flags,
-        a phase increment of 1."""
+        first. The fields the port does not carry hold what its
+        configurations leave in them: the current observation as the
+        one-frame history, a phase increment of 1."""
         B = obs.shape[0]
         fields = [state.phys.qpos, state.phys.qvel, state.phys.qacc,
                   *(getattr(state.params, f.name)
@@ -359,11 +542,12 @@ class CassieEnv(Env):
                   state.phase, state.counter, state.time, state.speed,
                   state.side_speed, state.orient_add, state.swing_duration,
                   state.stance_duration, state.stance_mode,
-                  state.motor_enc_noise, state.joint_enc_noise]
+                  state.motor_enc_noise, state.joint_enc_noise,
+                  state.prev_action, state.prev_torque]
         return [to_batch_first(x) for x in fields] + [
-            np.zeros((B, 10), np.float32), np.zeros((B, 10), np.float32),
             obs.detach().cpu().numpy()[:, None, :].astype(np.float32),
-            np.zeros(B, bool), np.zeros(B, bool), np.ones(B, np.float32)]
+            to_batch_first(state.l_high), to_batch_first(state.r_high),
+            np.ones(B, np.float32)]
 
     # ------------------------------------------------------------------
     def _rotate_to_orient(self, orient_add: torch.Tensor, vec: torch.Tensor):
@@ -398,6 +582,25 @@ class CassieEnv(Env):
         # normalizer, so sanitize at the single obs chokepoint
         base = torch.where(torch.isfinite(base), base, 0.0)
         return base.T
+
+
+def _flag_seq(init: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+              ) -> torch.Tensor:
+    """The 1-bit recurrence h_t = (not a_t) if h_(t-1) else b_t over the
+    substeps, from h_(-1) = init (B,): its value after every substep, (L,
+    B), as the JAX env's associative scan gives it (envs/cassie.py:595-
+    605). Each substep maps h to a constant (when b_t == not a_t), keeps
+    it (b_t = 0, a_t = 0) or flips it (b_t = 1, a_t = 1); so h_t is the
+    last constant (or init) flipped once per flip since."""
+    L = a.shape[0]
+    const = b == ~a
+    t = torch.arange(L, device=a.device)[:, None].expand_as(a)
+    last = torch.cummax(torch.where(const, t, -1), dim=0).values
+    flips = torch.cumsum((a & b).to(torch.int32), dim=0)
+    at_last = last.clamp(min=0)
+    base = torch.where(last >= 0, b.gather(0, at_last), init[None])
+    since = flips - torch.where(last >= 0, flips.gather(0, at_last), 0)
+    return base ^ (since % 2 == 1)
 
 
 def _last_substep(diag_seq):

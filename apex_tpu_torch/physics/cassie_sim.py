@@ -59,16 +59,20 @@ CASSIE_QPOS_INIT = np.array([
     -1.5968,
 ])
 
-_MODEL = None
+_MODELS = {}
 
 
-def cassie_model() -> PhysModel:
-    """Canonical flat-ground Cassie PhysModel (cached, so the structure and
-    kernel-table caches hung off the instance are shared by every env)."""
-    global _MODEL
-    if _MODEL is None:
-        _MODEL = make_model()
-    return _MODEL
+def cassie_model(enable_hfield: bool = False) -> PhysModel:
+    """Canonical Cassie PhysModel, flat-ground or with the heightfield
+    terrain branch (cached per variant, so the structure and kernel-table
+    caches hung off the instance are shared by every env)."""
+    m = _MODELS.get(enable_hfield)
+    if m is None:
+        m = make_model()
+        if enable_hfield:
+            m = dataclasses.replace(m, enable_hfield=True)
+        _MODELS[enable_hfield] = m
+    return m
 
 
 @dataclasses.dataclass

@@ -27,8 +27,9 @@ class PhysParams:
     batch-last: every field is the JAX `PhysParams` shape + (B,).
 
     Mirrors what the reference mutates through cassie_sim_set_* + set_const
-    (cassie.py:634-650). The heightfield fields are carried so that states
-    map one to one onto the JAX ones; the port runs flat ground only."""
+    (cassie.py:634-650). The heightfield fields are read by a model with
+    `enable_hfield`: each env's terrain table, centred on floor_pos and
+    spanning +- hfield_radius, replaces the plane where hfield_active."""
     body_mass: torch.Tensor      # (nbody, B)
     body_ipos: torch.Tensor      # (nbody, 3, B)
     dof_damping: torch.Tensor    # (nv, B)
@@ -59,6 +60,43 @@ class PhysParams:
             hfield_radius=bt(10.0),
             hfield_active=bt(0.0),
         )
+
+
+def hfield_bilinear(hf: torch.Tensor, fpos, cellsz: torch.Tensor,
+                    pwx: torch.Tensor, pwy: torch.Tensor):
+    """Height and gradient (h, dh/dx, dh/dy) of every env's terrain at the
+    world points (pwx, pwy), each (..., B); hf is the (HFIELD_RES^2, B)
+    table, row ix * HFIELD_RES + iy, centred on the floor position fpos
+    (3, B), cellsz (B,). The lookup of the fleet tier and of K1's plain
+    version.
+
+    The TPU kernel contracts the table with tent weights (Mosaic cannot
+    gather per lane, fleet_kernel.py:455-505); the only nonzero terms of
+    that contraction are the four corners H[ix, iy], H[ix+1, iy],
+    H[ix, iy+1], H[ix+1, iy+1], and adding an exact zero changes no
+    rounded sum. So the corners are gathered here and combined in the
+    contraction's order, which gives its values: x first, then y. The JAX
+    fleet's product-form lookup (`fleet._hfield_lookup_bt`) agrees to
+    rounding."""
+    ng = HFIELD_RES
+    ux = torch.clamp((pwx - fpos[0]) / cellsz + (ng - 1) / 2.0, 0.0,
+                     ng - 1.001)
+    uy = torch.clamp((pwy - fpos[1]) / cellsz + (ng - 1) / 2.0, 0.0,
+                     ng - 1.001)
+    i0x, i0y = torch.floor(ux), torch.floor(uy)
+    fx, fy = ux - i0x, uy - i0y
+    # a NaN coordinate reads corner 0; its weights are NaN all the same
+    base = (torch.nan_to_num(i0x).long() * ng
+            + torch.nan_to_num(i0y).long())
+    idx = base.reshape(-1, hf.shape[-1])
+    h00, h01, h10, h11 = (torch.gather(hf, 0, idx + off).reshape(base.shape)
+                          for off in (0, 1, ng, ng + 1))
+    acc0 = h00 * (1.0 - fx) + h10 * fx          # row iy, x contracted
+    acc1 = h01 * (1.0 - fx) + h11 * fx          # row iy + 1
+    hh = acc0 * (1.0 - fy) + acc1 * fy
+    dhx = (h10 - h00) * (1.0 - fy) + (h11 - h01) * fy
+    dhy = acc1 - acc0
+    return hh, dhx / cellsz, dhy / cellsz
 
 
 class _Structure:

@@ -1,7 +1,7 @@
 """Batch-last fleet physics: the whole env fleet through one substep.
 
-Port of `apex_tpu/physics/fleet.py` (flat ground): every array is
-shape + (B,). Forward kinematics goes through the CUDA kernel K2
+Port of `apex_tpu/physics/fleet.py`, flat, tilted and heightfield ground:
+every array is shape + (B,). Forward kinematics goes through the CUDA kernel K2
 (`fleet_fk.fleet_fk`) and the per-substep inverse of M + hD through K3
 (`ops.pallas_linalg.spd_inverse_bt`); everything else is plain PyTorch.
 
@@ -23,8 +23,10 @@ import torch
 from apex_tpu_torch.ops.pallas_linalg import spd_inverse_bt
 from apex_tpu_torch.physics.engine import (
     BAUMGARTE_BETA,
+    HFIELD_RES,
     PhysParams,
     _Structure,
+    hfield_bilinear,
 )
 from apex_tpu_torch.physics.fleet_fk import FleetKin, fleet_fk
 from apex_tpu_torch.physics.spec import PhysModel
@@ -149,10 +151,14 @@ class _Consts:
         self.neq = len(eqs)
         self.eq_b1 = idx([e.body1 for e in eqs])
         self.eq_b2 = idx([e.body2 for e in eqs])
-        self.eq_anchor1 = f32([e.anchor1 for e in eqs])[:, None, :, None]
-        self.eq_anchor2 = f32([e.anchor2 for e in eqs])[:, None, :, None]
-        self.eq_mask1 = f32([st.ancestor_mask[e.body1] for e in eqs])
-        self.eq_mask2 = f32([st.ancestor_mask[e.body2] for e in eqs])
+        anchors = lambda k: f32(np.reshape(
+            [getattr(e, k) for e in eqs], (-1, 3)))[:, None, :, None]
+        self.eq_anchor1 = anchors("anchor1")                     # (ne,1,3,1)
+        self.eq_anchor2 = anchors("anchor2")
+        self.eq_mask1 = f32(np.reshape(
+            [st.ancestor_mask[e.body1] for e in eqs], (-1, nv)))
+        self.eq_mask2 = f32(np.reshape(
+            [st.ancestor_mask[e.body2] for e in eqs], (-1, nv)))
 
         # qpos integration
         self.lin_dof = idx(st.lin_dof)
@@ -246,14 +252,11 @@ class FleetContact(NamedTuple):
 def _constraint_forces_bt(model: PhysModel, params_bt: PhysParams,
                           dyn: FleetDyn
                           ) -> Tuple[torch.Tensor, FleetContact]:
-    """Penalty contacts of the spheres with the (tilted) floor plane, with
+    """Penalty contacts of the spheres with the (tilted) floor plane or,
+    for a heightfield model's envs with hfield_active, the terrain, with
     the spatial Delassus formulation of the JAX fleet: Lambda_b =
     S_b (M + hD)^-1 S_b^T once per contact body, G_c = Phi_c Lambda_b
     Phi_c^T per sphere with Phi_c = [-skew(p_c) | I3]."""
-    if model.enable_hfield:
-        raise NotImplementedError(
-            "apex_tpu_torch runs flat ground only; the heightfield contact "
-            "path is not ported yet")
     kin = dyn.kin
     c = _Consts.of(model, kin.origin.device)
     B = kin.origin.shape[-1]
@@ -271,6 +274,18 @@ def _constraint_forces_bt(model: PhysModel, params_bt: PhysParams,
     depth = c.con_radius - torch.sum((p - floor_p) * n_w, dim=1)  # (nc, B)
     p_world = p + kin.origin
     n_c = n_w.expand(p.shape)
+    if model.enable_hfield:
+        cell = 2.0 * params_bt.hfield_radius / (HFIELD_RES - 1)  # (B,)
+        h, dhdx, dhdy = hfield_bilinear(
+            params_bt.hfield.reshape(HFIELD_RES ** 2, B),
+            params_bt.floor_pos, cell, p_world[:, 0, :], p_world[:, 1, :])
+        n_h = torch.stack([-dhdx, -dhdy, torch.ones_like(h)], dim=1)
+        n_h = n_h / torch.sqrt(torch.sum(n_h * n_h, dim=1, keepdim=True))
+        depth_h = (c.con_radius + (params_bt.floor_pos[2] + h)
+                   - p_world[:, 2, :])
+        active = params_bt.hfield_active > 0.5               # (B,)
+        depth = torch.where(active, depth_h, depth)
+        n_c = torch.where(active, n_h, n_c)
 
     bv = dyn.body_vel[cb]                                # (nc, 6, B)
     v_p = bv[:, 3:, :] + _cross_bt(bv[:, :3, :], p)      # (nc, 3, B)

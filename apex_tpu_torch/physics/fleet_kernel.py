@@ -18,7 +18,10 @@ in one program. Here:
 
 Batch-last throughout: qpos (nq, B), qvel (nv, B), cmd rows (5 nu, B)
 stacked [p_target; d_target; p_gain; d_gain; ff_torque]. Flat or tilted
-ground only: the heightfield branch arrives with terrain.
+ground, and for a model with `enable_hfield` the heightfield branch: each
+env's own 32 x 32 terrain table, (1024, B) rows, looked up bilinearly at
+every contact sphere, and a per-env `hfield_active` select between the
+terrain and the plane.
 """
 from __future__ import annotations
 
@@ -30,13 +33,16 @@ import torch
 from apex_tpu_torch.ops import cuda_build
 from apex_tpu_torch.physics.engine import (
     BAUMGARTE_BETA,
+    HFIELD_RES,
     PhysParams,
     _Structure,
+    hfield_bilinear,
 )
 from apex_tpu_torch.physics.spec import DOF_WIDTH, JointType, PhysModel
 
 DIAG_ROWS = 44
 MISC_ROWS = 14
+HFIELD_MISC_ROWS = 16     # + hfield_radius, hfield_active
 
 
 # ---------------------------------------------------------------------------
@@ -107,27 +113,30 @@ def _constants(model: PhysModel) -> Dict[str, float]:
                 two_h=2.0 * h, half_h=0.5 * h)
 
 
-def misc_rows(params: PhysParams, B: int) -> torch.Tensor:
-    """(14, B): friction(1) floor_quat(4) floor_pos(3) ext_force(6)."""
-    return torch.cat([params.friction.reshape(1, B), params.floor_quat,
-                      params.floor_pos, params.ext_force], dim=0)
+def misc_rows(model: PhysModel, params: PhysParams, B: int) -> torch.Tensor:
+    """(14, B): friction(1) floor_quat(4) floor_pos(3) ext_force(6); for a
+    heightfield model (16, B), + hfield_radius(1) hfield_active(1) (the
+    JAX package's `_misc_rows`, fleet_kernel.py:928-941)."""
+    rows = [params.friction.reshape(1, B), params.floor_quat,
+            params.floor_pos, params.ext_force]
+    if model.enable_hfield:
+        rows += [params.hfield_radius.reshape(1, B),
+                 params.hfield_active.reshape(1, B)]
+    return torch.cat(rows, dim=0)
 
 
 def static_rows(model: PhysModel, params: PhysParams
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """K1's per-env inputs that stay fixed over a scan: body_ipos as
-    (nbody * 3, B) rows and `misc_rows`. Built once per scan, as
-    `_megakernel_pd_scan` stacks its rows once (cassie_sim.py:402-404)."""
+    (nbody * 3, B) rows, `misc_rows`, and for a heightfield model the
+    terrain table as (HFIELD_RES^2, B) rows, row ix * HFIELD_RES + iy (None
+    for a flat model). Built once per scan, as `_megakernel_pd_scan` stacks
+    its rows once (cassie_sim.py:402-404)."""
     B = params.body_mass.shape[-1]
+    hf = (params.hfield.reshape(HFIELD_RES * HFIELD_RES, B).contiguous()
+          if model.enable_hfield else None)
     return (params.body_ipos.reshape(model.nbody * 3, B),
-            misc_rows(params, B))
-
-
-def _check_flat(model: PhysModel) -> None:
-    if model.enable_hfield:
-        raise NotImplementedError(
-            "K1's heightfield branch is not ported yet: it arrives with "
-            "terrain (flat and tilted ground only)")
+            misc_rows(model, params, B), hf)
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +148,6 @@ def pd_substep_plain(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
                      ) -> Tuple[torch.Tensor, ...]:
     """One PD substep, K1's math in plain PyTorch. Returns (qpos2 (nq, B),
     qvel2 (nv, B), qacc (nv, B), diag (44, B))."""
-    _check_flat(model)
     meta = meta_of(model)
     st = meta.st
     nb, nv, nq, nu = model.nbody, model.nv, model.nq, model.nu
@@ -147,7 +155,7 @@ def pd_substep_plain(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
     k = _constants(model)
     h, k_unit, b_unit = k["h"], k["k_unit"], k["b_unit"]
     grav = np.asarray(model.gravity, dtype=np.float64)
-    ipos, misc = static_rows(model, params)
+    ipos, misc, hf = static_rows(model, params)
 
     zero = torch.zeros_like(qpos[0])
     one = torch.ones_like(qpos[0])
@@ -433,6 +441,9 @@ def pd_substep_plain(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
     uuv = cross(uq, uv)
     n_w = [vz[kk] + 2.0 * (fquat[0] * uv[kk] + uuv[kk]) for kk in range(3)]
     floor_p = [fpos[kk] - origin[kk] for kk in range(3)]
+    if model.enable_hfield:
+        rad_h, act_h = misc[14], misc[15]
+        cellsz = 2.0 * rad_h / (HFIELD_RES - 1)
 
     qfrc_con: List[Optional[torch.Tensor]] = [None] * nv
     ncon = len(model.contacts)
@@ -482,6 +493,19 @@ def pd_substep_plain(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
                 + (p_[1] - floor_p[1]) * n_w[1]
                 + (p_[2] - floor_p[2]) * n_w[2])
             n_c = n_w
+            if model.enable_hfield:
+                # terrain: depth below the bilinear height along z, normal
+                # from the height gradient (fleet_kernel.py:536-547)
+                pw = [p_[kk] + origin[kk] for kk in range(3)]
+                hh, dhdx, dhdy = hfield_bilinear(hf, fpos, cellsz, pw[0],
+                                                 pw[1])
+                hnorm = torch.sqrt(dhdx * dhdx + dhdy * dhdy + 1.0)
+                n_h = [-dhdx / hnorm, -dhdy / hnorm, 1.0 / hnorm]
+                depth_h = float(con.radius) + (fpos[2] + hh) - pw[2]
+                hact = act_h > 0.5
+                depth = torch.where(hact, depth_h, depth)
+                n_c = [torch.where(hact, n_h[kk], n_w[kk])
+                       for kk in range(3)]
             bv = body_vel[cb]
             wxp = cross(bv[:3], p_)
             v_p = [bv[3 + kk] + wxp[kk] for kk in range(3)]
@@ -825,7 +849,7 @@ def _mat2quat_rows(Rm):
 # csrc/fleet_kernel.cu and must stay the same.
 _HEADER = (
     "NB", "NV", "NQ", "NU", "NCON", "NCB", "NEQ", "NLIM", "NLIN", "NBALL",
-    "ROOT_ORIGIN", "FEET", "LF", "RF", "NLCON", "NRCON", "NEQU",
+    "ROOT_ORIGIN", "FEET", "LF", "RF", "NLCON", "NRCON", "NEQU", "HFIELD",
     "O_BODY", "O_JOINT", "O_ANC_PTR", "O_ANC", "O_BANC_PTR", "O_BANC",
     "O_BDOF_PTR", "O_BDOF", "O_DOFBODY", "O_CON", "O_CB", "O_LIM",
     "O_LIMSUP_PTR", "O_LIMSUP", "O_SPRING", "O_LIN", "O_BALL", "O_ACT",
@@ -843,7 +867,6 @@ def _k1_tables(model: PhysModel, device: torch.device):
     cache = model.__dict__.setdefault("_k1_tables", {})
     if device in cache:
         return cache[device]
-    _check_flat(model)
     meta = meta_of(model)
     st = meta.st
     nb, nv = model.nbody, model.nv
@@ -864,7 +887,7 @@ def _k1_tables(model: PhysModel, device: torch.device):
         LF=meta.feet[0] if meta.feet else 0,
         RF=meta.feet[1] if meta.feet else 0,
         NLCON=len(meta.lcon), NRCON=len(meta.rcon),
-        NEQU=len(meta.eq_union))
+        NEQU=len(meta.eq_union), HFIELD=int(model.enable_hfield))
     ints: List[int] = [0] * len(_HEADER)
     floats: List[float] = []
 
@@ -951,6 +974,7 @@ def pd_substep(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
     """One PD substep of the fleet: the CUDA kernel for CUDA tensors,
     `pd_substep_plain` for CPU tensors. `static` is `static_rows(model,
     params)`, passed by a scan that builds it once; None builds it here.
+    A heightfield model runs the kernel's heightfield branch (or raises).
     Returns (qpos2, qvel2, qacc, diag (44, B))."""
     if qpos.device.type == "cpu":
         return pd_substep_plain(model, params, qpos, qvel, cmd_rows)
@@ -958,12 +982,16 @@ def pd_substep(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
         raise ValueError(f"pd_substep: unsupported device {qpos.device}")
     nb, nv, nq, nu = model.nbody, model.nv, model.nq, model.nu
     B = qpos.shape[-1]
-    ipos, misc = static_rows(model, params) if static is None else static
+    ipos, misc, hf = static_rows(model, params) if static is None else static
     ins = (("qpos", qpos, (nq, B)), ("qvel", qvel, (nv, B)),
            ("cmd_rows", cmd_rows, (5 * nu, B)),
            ("dof_damping", params.dof_damping, (nv, B)),
            ("body_mass", params.body_mass, (nb, B)),
-           ("body_ipos", ipos, (nb * 3, B)), ("misc", misc, (MISC_ROWS, B)))
+           ("body_ipos", ipos, (nb * 3, B)),
+           ("misc", misc, (HFIELD_MISC_ROWS if model.enable_hfield
+                           else MISC_ROWS, B)))
+    if model.enable_hfield:
+        ins += (("hfield", hf, (HFIELD_RES * HFIELD_RES, B)),)
     for name, x, shape in ins:
         if x.dtype != torch.float32 or tuple(x.shape) != shape \
                 or not x.is_contiguous() or x.device != qpos.device:
@@ -977,12 +1005,16 @@ def pd_substep(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
     outs = (new(nq), new(nv), new(nv), new(DIAG_ROWS))
     lib = cuda_build.library()
     err = lib.apex_pd_substep(
-        *(x.data_ptr() for _, x, _ in ins), *(o.data_ptr() for o in outs),
-        itab.data_ptr(), ftab.data_ptr(), B,
+        *(x.data_ptr() for _, x, _ in ins[:7]),
+        hf.data_ptr() if model.enable_hfield else None,
+        *(o.data_ptr() for o in outs), itab.data_ptr(), ftab.data_ptr(), B,
         torch.cuda.current_stream(qpos.device).cuda_stream)
     cuda_build.check(err, "apex_pd_substep")
     pd_substep.launches += 1
+    pd_substep.hfield_launches += int(model.enable_hfield)
     return outs
 
 
+# launches of the kernel, and how many of them ran a heightfield model
 pd_substep.launches = 0
+pd_substep.hfield_launches = 0

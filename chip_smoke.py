@@ -4,11 +4,14 @@ Drives the port's main paths -- the deterministic evaluation of the
 JAX-trained Cassie policy `curves/cassie_mk4_hardened_ckpt` (64 envs, 300
 policy steps of 50 PD substeps, dyn-rand, firmware estimator, early_clock
 reward) through the whole-substep kernel K1, the same evaluation through
-the fleet tier at reduced depth, and two PPO iterations of
-`python -m apex_tpu_torch ppo` at the training fleet -- after building the
-hand-written CUDA kernels from `apex_tpu_torch/csrc/` and holding each
-against its plain PyTorch version on the card. Phases, each printed with
-its seconds as it ends:
+the fleet tier at reduced depth, the evaluations of the two terrain
+checkpoints through K1's heightfield branch (`curves/cassie_mk5c_ckpt`:
+noise terrain, 5k_speed_reward, dyn-rand off, 60 substeps;
+`curves/cassie_mk4_terrain_ckpt`: mk4_hardened on noise terrain), and two
+PPO iterations of `python -m apex_tpu_torch ppo` at the training fleet --
+after building the hand-written CUDA kernels from `apex_tpu_torch/csrc/`
+and holding each against its plain PyTorch version on the card. Phases,
+each printed with its seconds as it ends:
 
   device     require CUDA; card name, power limit, torch and CUDA versions
   build      nvcc build of the kernels (seconds; registers and spills)
@@ -19,12 +22,22 @@ its seconds as it ends:
              (bounds from the plain version's rounding spread per row),
              and against the fleet step at the JAX package's
              megakernel-vs-fleet tolerances
+  K1-hfield  the same for the heightfield branch on terrain fleets (noise
+             and steps tables, envs beyond the table's edge, a quarter of
+             the envs on the plane), and its plane envs against the flat
+             kernel bit for bit
   parity     a reset and one fleet substep on the GPU against the CPU;
              a GPU env step gives finite values of the right shapes
   eval       the 64-env, 300-step evaluation on the megakernel tier for
              seeds 42, 0 and 1; launch counts of K1, K2 and K3 must equal
-             what the code path implies
+             what the code path implies, and the returns those of the
+             flat kernel before the heightfield branch
   eval_fleet the same evaluation on the fleet tier, 30 steps, seed 42
+  eval_mk5c, eval_mk4_terrain
+             the terrain checkpoints' 64-env, 300-step evaluations on the
+             megakernel tier (seeds 42, 0, 1), every K1 launch a
+             heightfield one; eval_fleet_mk5c: mk5c on the fleet tier,
+             30 steps
   step_1024  ms per policy step at the training fleet (1024 envs), and
              CUDA launches per substep from torch.profiler
   train      `python -m apex_tpu_torch ppo` in-process, 2 iterations of
@@ -56,10 +69,18 @@ from apex_tpu_torch.physics.cassie_sim import (
 )
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.runtime.evaluate import eval_checkpoint, load_experiment
+from apex_tpu_torch.utils.terrain import terrain_bank
 
 CKPT = "curves/cassie_mk4_hardened_ckpt"
+# the terrain checkpoints and their substeps per policy step
+TERRAIN_CKPTS = {"mk5c": ("curves/cassie_mk5c_ckpt", 60),
+                 "mk4_terrain": ("curves/cassie_mk4_terrain_ckpt", 50)}
 N_ENVS, TRAJ_LEN, FLEET = 64, 300, 1024
 EVAL_SEEDS = (42, 0, 1)
+# the mk4_hardened returns of the flat K1 path before the heightfield
+# branch was added (PERF.md, H100 80GB HBM3 at 700 W); the branch must
+# leave them unchanged
+FLAT_K1_RETURNS = {42: "134.0665", 0: "132.2858", 1: "127.8053"}
 FLEET_TRAJ_LEN = 30                # depth of the fleet-tier evaluation
 SIMRATE = 50
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -177,13 +198,44 @@ def k1_flops_per_env(model) -> int:
     return ops
 
 
-def k1_bytes_per_env(model) -> int:
-    """Bytes one env's substep must move: each input row read once and each
-    output row written once, 4 bytes each."""
+def k1_hfield_flops_per_env(model) -> int:
+    """FP32 operations the heightfield branch adds for an env on terrain:
+    the cell size, and per contact its world point (3), the lookup (33:
+    two clipped cell coordinates, their floors and fractions, the x then y
+    contraction and both gradients), the normal (10) and the depth (3)."""
+    return 2 + 49 * len(model.contacts)
+
+
+def k1_flops(model, params) -> int:
+    """FP32 operations of one substep of the fleet: the flat substep per
+    env, and the heightfield branch for each env on terrain (the plane
+    envs skip it)."""
+    B = params.body_mass.shape[-1]
+    ops = k1_flops_per_env(model) * B
+    if model.enable_hfield:
+        active = int((params.hfield_active > 0.5).sum())
+        ops += k1_hfield_flops_per_env(model) * active
+    return ops
+
+
+def k1_bytes(model, params) -> int:
+    """Bytes one substep of the fleet must move: per env, each input row
+    read once and each output row written once, 4 bytes each (a heightfield
+    model has two more misc rows); and for each env on terrain, the four
+    table corners of each contact's cell, which is all the branch reads of
+    the env's (1024,) table column. Contacts that share a cell need its
+    corners once, so this count of the table is at most what is needed."""
+    B = params.body_mass.shape[-1]
+    misc = (fleet_kernel.HFIELD_MISC_ROWS if model.enable_hfield
+            else fleet_kernel.MISC_ROWS)
     rows_in = (model.nq + model.nv + 5 * model.nu + model.nv + model.nbody
-               + 3 * model.nbody + fleet_kernel.MISC_ROWS)
+               + 3 * model.nbody + misc)
     rows_out = model.nq + 2 * model.nv + fleet_kernel.DIAG_ROWS
-    return 4 * (rows_in + rows_out)
+    nbytes = 4 * (rows_in + rows_out) * B
+    if model.enable_hfield:
+        active = int((params.hfield_active > 0.5).sum())
+        nbytes += 4 * 4 * len(model.contacts) * active
+    return nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -287,11 +339,33 @@ def check_k2(gen, dev):
     return out
 
 
-def k1_inputs(B: int, gen: torch.Generator, dev):
+def add_terrain(qpos, params, gen: torch.Generator, amplitude: float):
+    """Heightfield terrain for a CPU fleet, in place: tables of the env's
+    bank at `amplitude`, noise for the even envs and steps for the odd,
+    hfield_active 0 for every fourth env (the plane), and every eighth env
+    moved to within 0.6 m of the table's edge at +-10 m, or past it (the
+    lookup's clip)."""
+    B = qpos.shape[-1]
+    env = torch.arange(B)
+    idx = torch.randint(0, 64, (B,), generator=gen)
+    tables = torch.where((env % 2 == 0)[:, None, None],
+                         terrain_bank("noise", amplitude)[idx],
+                         terrain_bank("steps", amplitude)[idx])
+    params.hfield = tables.permute(1, 2, 0).contiguous()
+    params.hfield_active = (env % 4 != 3).float()
+    edge = env % 8 == 5
+    sign = torch.where(torch.rand(2, int(edge.sum()), generator=gen) < 0.5,
+                       -1.0, 1.0)
+    qpos[0:2, edge] = sign * (9.4 + 1.2 * torch.rand(
+        2, int(edge.sum()), generator=gen))
+
+
+def k1_inputs(B: int, gen: torch.Generator, dev, terrain: float = 0.0):
     """`cassie_inputs`, with every other env lowered 2 cm into the floor so
     that contact forces are nonzero, friction U(0.4, 1.1), the floor tilted
     by up to 0.03 rad, an external wrench on the pelvis, and PD targets
-    0.1 rad around the motor positions at the default gains."""
+    0.1 rad around the motor positions at the default gains; with
+    `terrain`, on `add_terrain`'s terrain of that amplitude."""
     m = cassie_model()
     qpos, qvel, params = cassie_inputs(B, gen)
     qpos[2, 1::2] -= 0.02
@@ -305,6 +379,8 @@ def k1_inputs(B: int, gen: torch.Generator, dev):
     params.ext_force = 20.0 * torch.randn(6, B, generator=gen)
     target = qpos[torch.as_tensor(MOTOR_QPOS_IDX)] + 0.1 * torch.randn(
         m.nu, B, generator=gen)
+    if terrain:
+        add_terrain(qpos, params, gen, terrain)
     return k1_to(dev, qpos, qvel, params, target)
 
 
@@ -318,11 +394,13 @@ def k1_to(dev, qpos, qvel, params, target):
             qvel.to(dev).contiguous(), rows.to(dev).contiguous())
 
 
-def k1_standing_inputs(B: int, gen: torch.Generator, dev, params=None):
+def k1_standing_inputs(B: int, gen: torch.Generator, dev, params=None,
+                       terrain: float = 0.0):
     """The inputs of tools/check_megakernel.py: the standing pose with
     0.005 qpos and 0.05 qvel noise, PD targets N(0, 0.05^2), default
     parameters unless `params` (CPU) are given; the even envs (env 0 too,
-    so B = 1 is in contact) lowered 2 cm into contact."""
+    so B = 1 is in contact) lowered 2 cm into contact; with `terrain`, on
+    `add_terrain`'s terrain of that amplitude."""
     m = cassie_model()
     qpos = torch.tensor(CASSIE_QPOS_INIT, dtype=torch.float32)[:, None] \
         + 0.005 * torch.randn(m.nq, B, generator=gen)
@@ -334,8 +412,10 @@ def k1_standing_inputs(B: int, gen: torch.Generator, dev, params=None):
     qvel = 0.05 * torch.randn(m.nv, B, generator=gen)
     if params is None:
         params = PhysParams.from_model(m, B, torch.device("cpu"))
-    return k1_to(dev, qpos, qvel, params,
-                 0.05 * torch.randn(m.nu, B, generator=gen))
+    target = 0.05 * torch.randn(m.nu, B, generator=gen)
+    if terrain:
+        add_terrain(qpos, params, gen, terrain)
+    return k1_to(dev, qpos, qvel, params, target)
 
 
 def k1_vs_plain(m, params, qpos, qvel, rows, gen, what: str):
@@ -371,54 +451,77 @@ def k1_vs_plain(m, params, qpos, qvel, rows, gen, what: str):
     return worst, plain_ms, force
 
 
-def check_k1(gen, dev, build_log: str):
+def k1_vs_fleet(m, params, qpos, qvel, rows, what: str):
+    """K1 against the fleet step at the JAX package's tolerances
+    (tools/check_megakernel.py:80-91) on the same inputs."""
+    dev = qpos.device
+    k1 = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    gear = torch.tensor([a.gear for a in m.actuators], device=dev)[:, None]
+    mq = torch.as_tensor(MOTOR_QPOS_IDX, device=dev)
+    mv = torch.as_tensor(MOTOR_QVEL_IDX, device=dev)
+    nu = m.nu
+    tau = (rows[2 * nu:3 * nu] * (rows[:nu] - qpos[mq])
+           + rows[3 * nu:4 * nu] * (rows[nu:2 * nu] - qvel[mv])
+           + rows[4 * nu:])
+    _, con, fq, fv, fa, _ = fleet.fleet_step(m, params, qpos, qvel,
+                                             tau / gear)
+    lcon = [i for i, c in enumerate(m.contacts) if c.group == 0]
+    l_frc = sum(con.force[i, 2] for i in lcon)
+    vs_fleet = {
+        "qpos": (float((k1[0] - fq).abs().max()), 2e-5),
+        "qvel": (float((k1[1] - fv).abs().max()), 2e-2),
+        "qacc": (float((k1[2] - fa).abs().max()), 60.0),
+        "l_frc": (float((k1[3][0] - l_frc).abs().max()), 2.0)}
+    for name, (d, tol) in vs_fleet.items():
+        if not d < tol:
+            raise AssertionError(f"{what} vs fleet {name}: {d:.3e} >= {tol}")
+    return vs_fleet
+
+
+def check_k1(gen, dev, build_log: str, terrain: float = 0.0):
     """K1 against its plain version and against the fleet step. The
     perturbed fleet reaches contact, tilt, friction and wrench branches,
     but its loose achilles rods (up to ~3e3 rad/s) widen each row's bound;
-    near the standing pose every env is calm, so the same rule is tight."""
-    m = cassie_model()
+    near the standing pose every env is calm, so the same rule is tight.
+    With `terrain`, the heightfield model on terrain of that amplitude
+    (the standing fleet at half of it), and the plane envs of the
+    heightfield launch against the flat kernel's, bit for bit."""
+    m = cassie_model(enable_hfield=bool(terrain))
+    tag = "K1-hfield" if terrain else "K1"
     out = {}
     for B in (N_ENVS, FLEET):
-        params, qpos, qvel, rows = k1_inputs(B, gen, dev)
+        params, qpos, qvel, rows = k1_inputs(B, gen, dev, terrain)
         worst, plain_ms, force = k1_vs_plain(m, params, qpos, qvel, rows,
-                                             gen, f"B={B}")
-        params_s, qpos_s, qvel_s, rows_s = k1_standing_inputs(B, gen, dev)
+                                             gen, f"{tag} B={B}")
+        params_s, qpos_s, qvel_s, rows_s = k1_standing_inputs(
+            B, gen, dev, terrain=terrain / 2)
         worst_s, _, _ = k1_vs_plain(m, params_s, qpos_s, qvel_s, rows_s,
-                                    gen, f"standing B={B}")
-
-        # against the fleet step at the JAX package's tolerances
-        # (tools/check_megakernel.py:80-91), on that tool's inputs
-        k1 = fleet_kernel.pd_substep(m, params_s, qpos_s, qvel_s, rows_s)
-        gear = torch.tensor([a.gear for a in m.actuators], device=dev)[:, None]
-        mq = torch.as_tensor(MOTOR_QPOS_IDX, device=dev)
-        mv = torch.as_tensor(MOTOR_QVEL_IDX, device=dev)
-        nu = m.nu
-        tau = (rows_s[2 * nu:3 * nu] * (rows_s[:nu] - qpos_s[mq])
-               + rows_s[3 * nu:4 * nu] * (rows_s[nu:2 * nu] - qvel_s[mv])
-               + rows_s[4 * nu:])
-        _, con, fq, fv, fa, _ = fleet.fleet_step(m, params_s, qpos_s, qvel_s,
-                                                 tau / gear)
-        lcon = [i for i, c in enumerate(m.contacts) if c.group == 0]
-        l_frc = sum(con.force[i, 2] for i in lcon)
-        vs_fleet = {
-            "qpos": (float((k1[0] - fq).abs().max()), 2e-5),
-            "qvel": (float((k1[1] - fv).abs().max()), 2e-2),
-            "qacc": (float((k1[2] - fa).abs().max()), 60.0),
-            "l_frc": (float((k1[3][0] - l_frc).abs().max()), 2.0)}
-        for name, (d, tol) in vs_fleet.items():
-            if not d < tol:
-                raise AssertionError(f"K1 vs fleet B={B} {name}: {d:.3e} "
-                                     f">= {tol}")
+                                    gen, f"{tag} standing B={B}")
+        vs_fleet = k1_vs_fleet(m, params_s, qpos_s, qvel_s, rows_s,
+                               f"{tag} B={B}")
+        extra = ""
+        if terrain:
+            got = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+            flat = fleet_kernel.pd_substep(cassie_model(), params, qpos,
+                                           qvel, rows)
+            plane = params.hfield_active == 0
+            if not all(torch.equal(a[:, plane], b[:, plane])
+                       for a, b in zip(got, flat)):
+                raise AssertionError(f"{tag} B={B}: the plane envs differ "
+                                     "from the flat kernel's")
+            moved = float((got[1][:, ~plane] - flat[1][:, ~plane]).abs()
+                          .max())
+            extra = (f"; plane envs bitwise equal to the flat kernel, "
+                     f"terrain envs' qvel moved up to {moved:.3e}")
 
         ms = cuda_ms(lambda: fleet_kernel.pd_substep(m, params, qpos, qvel,
                                                      rows), 20)
-        bnd, by, why = bound_ms(k1_bytes_per_env(m) * B,
-                                k1_flops_per_env(m) * B)
+        bnd, by, why = bound_ms(k1_bytes(m, params), k1_flops(m, params))
         out[B] = dict(max_abs_err=max(v[0] for v in (*worst.values(),
                                                       *worst_s.values())),
                       ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                       library_ms=None)
-        print(f"  K1 B={B}: vs plain (max err, x bound) "
+        print(f"  {tag} B={B}: vs plain (max err, x bound) "
               + ", ".join(f"{k} {v[0]:.3e} {v[1]:.2f}"
                           for k, v in worst.items())
               + f"; max contact force {force:.1f} N; standing pose vs "
@@ -427,12 +530,14 @@ def check_k1(gen, dev, build_log: str):
               + "; vs fleet "
               + ", ".join(f"{k} {d:.3e} (tol {t})"
                           for k, (d, t) in vs_fleet.items())
-              + f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-              f"{bnd * 1e3:.3f} us ({by}: {why}), library none", flush=True)
-    regs = [ln.strip() for ln in build_log.split("== fleet_kernel.cu", 1)[-1]
-            .split("==", 1)[0].splitlines()
-            if "registers" in ln or "stack frame" in ln]
-    print("  K1 " + " | ".join(regs), flush=True)
+              + f"{extra}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bnd * 1e3:.3f} us ({by}: {why}), library none",
+              flush=True)
+    if not terrain:
+        regs = [ln.strip() for ln in build_log.split("== fleet_kernel.cu", 1)
+                [-1].split("==", 1)[0].splitlines()
+                if "registers" in ln or "stack frame" in ln]
+        print("  K1 " + " | ".join(regs), flush=True)
     return out
 
 
@@ -466,7 +571,7 @@ def check_parity(dev):
     rnoise = envs["cpu"].sample_reset_noise(gen, 4)
     obs0 = {}
     for d, env in envs.items():
-        mv = lambda x: x.to(env.device)
+        mv = lambda x: None if x is None else x.to(env.device)
         obs0[d] = env.reset(type(rnoise)(*map(mv, rnoise)))[1].cpu()
     torch.testing.assert_close(obs0["cuda"], obs0["cpu"], rtol=1e-5,
                                atol=1e-5)
@@ -511,12 +616,14 @@ def count_launches(fn):
                 "K3": pallas_linalg.spd_inverse_bt}
     for w in wrappers.values():
         w.launches = 0
+    fleet_kernel.pd_substep.hfield_launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     result = fn()
     torch.cuda.synchronize()
-    return result, time.time() - t0, {k: w.launches
-                                      for k, w in wrappers.items()}
+    counts = {k: w.launches for k, w in wrappers.items()}
+    counts["K1-hfield"] = fleet_kernel.pd_substep.hfield_launches
+    return result, time.time() - t0, counts
 
 
 def check_counts(name, got, want):
@@ -524,15 +631,49 @@ def check_counts(name, got, want):
         raise AssertionError(f"{name}: launch counts {got}, want {want}")
 
 
-def run_eval(physics, traj_len, seed):
-    """The deterministic evaluation of CKPT on one tier, counted."""
+def run_eval(physics, traj_len, seed, ckpt=CKPT):
+    """The deterministic evaluation of a checkpoint on one tier, counted."""
     (ep_ret, ep_len), secs, n = count_launches(lambda: eval_checkpoint(
-        CKPT, n_episodes=N_ENVS, traj_len=traj_len, device="cuda",
+        ckpt, n_episodes=N_ENVS, traj_len=traj_len, device="cuda",
         seed=seed, physics=physics))
     if not (np.isfinite(ep_ret) and np.isfinite(ep_len) and ep_len > 0):
         raise AssertionError(f"eval ({physics}, seed {seed}) gave return "
                              f"{ep_ret}, length {ep_len}")
     return ep_ret, ep_len, secs, n
+
+
+def eval_seeds(name, ckpt, simrate, hfield):
+    """The 64-env, 300-step megakernel-tier evaluation of `ckpt` for each
+    seed of EVAL_SEEDS, counted: K1 once per substep (each a heightfield
+    launch on terrain), K2 once per step for the pre-step foot positions,
+    once per step for the auto-reset fleet and once for the initial reset,
+    K3 never. The flat checkpoint's returns must be those of the flat
+    kernel before the heightfield branch. Returns the first seed's counts
+    and a printable summary."""
+    want = {"K1": TRAJ_LEN * simrate,
+            "K1-hfield": TRAJ_LEN * simrate if hfield else 0,
+            "K2": TRAJ_LEN * 2 + 1, "K3": 0}
+    rets, lens, ms, first = [], [], [], None
+    for seed in EVAL_SEEDS:
+        ep_ret, ep_len, secs, n = run_eval("megakernel", TRAJ_LEN, seed,
+                                           ckpt)
+        check_counts(f"{name} seed {seed}", n, want)
+        first = first or n
+        rets.append(ep_ret)
+        lens.append(ep_len)
+        ms.append(secs / TRAJ_LEN * 1e3)
+        print(f"  {name} seed {seed}: return {ep_ret!r}, length "
+              f"{ep_len:.2f}, {ms[-1]:.2f} ms per policy step", flush=True)
+        if ckpt == CKPT and f"{ep_ret:.4f}" != FLAT_K1_RETURNS[seed]:
+            raise AssertionError(
+                f"{name} seed {seed}: return {ep_ret:.4f}, the flat kernel "
+                f"gave {FLAT_K1_RETURNS[seed]} before the heightfield branch")
+    return dict(first, summary=dict(
+        mean_return=f"{np.mean(rets):.4f}", mean_length=f"{np.mean(lens):.2f}",
+        returns=[f"{r:.4f}" for r in rets],
+        ms_per_policy_step=[f"{x:.2f}" for x in ms],
+        k1_launches=first["K1"], k1_hfield_launches=first["K1-hfield"],
+        k2_launches=first["K2"], k3_launches=first["K3"]))
 
 
 def step_1024(dev):
@@ -676,6 +817,9 @@ def main() -> int:
     t0 = time.time()
     k1 = check_k1(gen, dev, build_log)
     phase("K1", t0)
+    t0 = time.time()
+    k1h = check_k1(gen, dev, build_log, terrain=0.06)
+    phase("K1-hfield", t0)
 
     t0 = time.time()
     reset_diff, qvel_diff, qpos_diff, ratio = check_parity(dev)
@@ -689,34 +833,38 @@ def main() -> int:
     # positions, once per step for the auto-reset fleet, once for the
     # initial reset; K3: never
     t0 = time.time()
-    want = {"K1": TRAJ_LEN * SIMRATE, "K2": TRAJ_LEN * 2 + 1, "K3": 0}
-    rets, lens, eval_n = [], [], None
-    for seed in EVAL_SEEDS:
-        ep_ret, ep_len, secs, n = run_eval("megakernel", TRAJ_LEN, seed)
-        check_counts(f"eval seed {seed}", n, want)
-        eval_n = eval_n or n
-        rets.append(ep_ret)
-        lens.append(ep_len)
-        print(f"  eval seed {seed}: return {ep_ret:.4f}, length "
-              f"{ep_len:.2f}, {secs / TRAJ_LEN * 1e3:.2f} ms per policy "
-              f"step", flush=True)
-    phase("eval", t0, mean_return=f"{np.mean(rets):.4f}",
-          mean_length=f"{np.mean(lens):.2f}",
-          returns=[f"{r:.4f}" for r in rets],
-          k1_launches=eval_n["K1"], k2_launches=eval_n["K2"],
-          k3_launches=eval_n["K3"])
+    eval_n = eval_seeds("eval", CKPT, SIMRATE, hfield=False)
+    phase("eval", t0, **eval_n.pop("summary"))
 
     # the fleet tier at reduced depth: K3 once per substep, K2 once per
     # substep, twice per step and once at the reset
     t0 = time.time()
     ep_ret, ep_len, secs, fleet_n = run_eval("fleet", FLEET_TRAJ_LEN, 42)
     check_counts("eval_fleet", fleet_n, {
-        "K1": 0, "K2": FLEET_TRAJ_LEN * (SIMRATE + 2) + 1,
+        "K1": 0, "K1-hfield": 0, "K2": FLEET_TRAJ_LEN * (SIMRATE + 2) + 1,
         "K3": FLEET_TRAJ_LEN * SIMRATE})
     phase("eval_fleet", t0, mean_return=f"{ep_ret:.4f}",
           mean_length=f"{ep_len:.2f}",
           ms_per_policy_step=f"{secs / FLEET_TRAJ_LEN * 1e3:.2f}",
           k3_launches=fleet_n["K3"], k2_launches=fleet_n["K2"])
+
+    # the terrain checkpoints through K1's heightfield branch
+    terrain_n = {}
+    for name, (ckpt, simrate) in TERRAIN_CKPTS.items():
+        t0 = time.time()
+        terrain_n[name] = eval_seeds(f"eval_{name}", ckpt, simrate,
+                                     hfield=True)
+        phase(f"eval_{name}", t0, **terrain_n[name].pop("summary"))
+    ckpt, simrate = TERRAIN_CKPTS["mk5c"]
+    t0 = time.time()
+    ep_ret, ep_len, secs, n = run_eval("fleet", FLEET_TRAJ_LEN, 42, ckpt)
+    check_counts("eval_fleet_mk5c", n, {
+        "K1": 0, "K1-hfield": 0, "K2": FLEET_TRAJ_LEN * (simrate + 2) + 1,
+        "K3": FLEET_TRAJ_LEN * simrate})
+    phase("eval_fleet_mk5c", t0, mean_return=f"{ep_ret:.4f}",
+          mean_length=f"{ep_len:.2f}",
+          ms_per_policy_step=f"{secs / FLEET_TRAJ_LEN * 1e3:.2f}",
+          k3_launches=n["K3"], k2_launches=n["K2"])
 
     t0 = time.time()
     phase("step_1024", t0, **step_1024(dev))
@@ -729,6 +877,10 @@ def main() -> int:
          "source": "apex_tpu_torch/csrc/fleet_kernel.cu",
          "replaces": "apex_tpu/physics/fleet_kernel.py:124",
          "launches": eval_n["K1"], **k1[N_ENVS]},
+        {"name": "K1 pd_substep, heightfield branch", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/fleet_kernel.cu",
+         "replaces": "apex_tpu/physics/fleet_kernel.py:455",
+         "launches": terrain_n["mk5c"]["K1-hfield"], **k1h[N_ENVS]},
         {"name": "K3 spd_inverse_bt", "route": "cuda",
          "source": "apex_tpu_torch/csrc/spd_inverse.cu",
          "replaces": "apex_tpu/ops/pallas_linalg.py:36",
@@ -746,6 +898,8 @@ def main() -> int:
     ]}
     at_fleet = {"K1": {k: v for k, v in k1[FLEET].items()
                        if k != "max_abs_err"},
+                "K1-hfield": {k: v for k, v in k1h[FLEET].items()
+                              if k != "max_abs_err"},
                 "K3": k3[("time", FLEET)],
                 "K2": {k: v for k, v in k2[FLEET].items()
                        if k != "max_abs_err"}}

@@ -13,7 +13,7 @@ from apex_tpu_torch.ops import pallas_linalg
 from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
-from chip_smoke import k1_standing_inputs
+from chip_smoke import k1_inputs, k1_standing_inputs
 
 
 @pytest.fixture
@@ -195,3 +195,58 @@ def test_substep_kernel_refuses_bad_inputs(cuda):
         fleet_kernel.pd_substep(m, params, qpos.double(), qvel, rows)
     with pytest.raises(ValueError):                      # wrong rows
         fleet_kernel.pd_substep(m, params, qpos, qvel, rows[:40])
+
+
+def _k1_terrain_inputs(B, seed, cuda):
+    """`chip_smoke.k1_inputs` on terrain: noise and steps tables at 0.06,
+    envs beyond the table's edge, every fourth env on the plane."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return k1_inputs(B, gen, cuda, terrain=0.06)
+
+
+@pytest.mark.parametrize("B", [64, 1000])
+def test_substep_kernel_hfield_matches_plain(cuda, B):
+    """K1's heightfield branch against `pd_substep_plain` on the card, held
+    to `fleet_kernel.kernel_bounds` as the flat branch is."""
+    m = cassie_model(enable_hfield=True)
+    params, qpos, qvel, rows = _k1_terrain_inputs(B, B, cuda)
+    before = fleet_kernel.pd_substep.hfield_launches
+    got = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    assert fleet_kernel.pd_substep.hfield_launches == before + 1
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    ref, spread = fleet_kernel.plain_spread(m, params, qpos, qvel, rows, gen)
+    bounds = fleet_kernel.kernel_bounds(ref, spread)
+    torch.cuda.synchronize()
+    for k, (a, r, bound) in enumerate(zip(got, ref, bounds)):
+        assert torch.isfinite(a).all()
+        d = (a - r).abs()
+        assert (d <= bound).all(), (k, float((d / bound).max()))
+    assert float(ref[3][0:2].abs().max()) > 0      # feet in contact
+
+
+def test_substep_kernel_hfield_plane_envs_are_flat(cuda):
+    """Envs with hfield_active 0 give the flat kernel's bits; the terrain
+    envs do not."""
+    params, qpos, qvel, rows = _k1_terrain_inputs(256, 3, cuda)
+    got = fleet_kernel.pd_substep(cassie_model(enable_hfield=True), params,
+                                  qpos, qvel, rows)
+    flat = fleet_kernel.pd_substep(cassie_model(), params, qpos, qvel, rows)
+    plane = params.hfield_active == 0
+    assert 0 < int(plane.sum()) < 256
+    for a, b in zip(got, flat):
+        assert torch.equal(a[:, plane], b[:, plane])
+    assert not torch.equal(got[1][:, ~plane], flat[1][:, ~plane])
+
+
+def test_substep_kernel_hfield_refuses_a_bad_table(cuda):
+    m = cassie_model(enable_hfield=True)
+    params, qpos, qvel, rows = _k1_terrain_inputs(4, 0, cuda)
+    static = fleet_kernel.static_rows(m, params)
+    with pytest.raises(ValueError):                      # table rows
+        fleet_kernel.pd_substep(m, params, qpos, qvel, rows,
+                                (*static[:2], static[2][:512]))
+    with pytest.raises(ValueError):                      # flat misc rows
+        fleet_kernel.pd_substep(m, params, qpos, qvel, rows,
+                                (static[0], static[1][:14], static[2]))

@@ -100,8 +100,9 @@ def test_unported_configurations_raise():
     from apex_tpu_torch.envs.cassie import CassieEnv
     from apex_tpu_torch.envs.registry import env_factory
 
-    for kwargs in ({"terrain": "noise"}, {"input_profile": "min"},
-                   {"reward": "clock"}, {"history": 1}):
+    for kwargs in ({"estimator": "exact"}, {"input_profile": "min"},
+                   {"reward": "clock"}, {"history": 1},
+                   {"terrain": "stairs"}):
         with pytest.raises(NotImplementedError):
             CassieEnv(device="cpu", **kwargs)
     with pytest.raises(NotImplementedError):

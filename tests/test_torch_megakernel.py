@@ -243,8 +243,8 @@ def test_megakernel_tier_matches_the_fleet_tier():
 
 
 def test_tier_selection_and_unsupported_inputs():
-    """The tier defaults by device; unknown tiers, the heightfield branch
-    and devices other than CPU and CUDA raise."""
+    """The tier defaults by device; unknown tiers, models beyond the
+    kernel's capacity and devices other than CPU and CUDA raise."""
     m = cassie_model()
     qpos, qvel, cmd, params = _fleet(seed=2)
     p = _port_params(params)
@@ -262,10 +262,10 @@ def test_tier_selection_and_unsupported_inputs():
         CassieEnv(device="cpu", pd_tier="per-env")
     assert CassieEnv(device="cpu", pd_tier="megakernel").pd_tier \
         == "megakernel"
-    with pytest.raises(NotImplementedError):
-        fleet_kernel.pd_substep_plain(
-            dataclasses.replace(m, enable_hfield=True), p,
-            torch.tensor(qpos), torch.tensor(qvel), torch.tensor(cmd))
+    with pytest.raises(ValueError, match="capacity"):
+        fleet_kernel._k1_tables(
+            dataclasses.replace(m, contacts=m.contacts * 2),
+            torch.device("cpu"))
     meta = torch.device("meta")
     with pytest.raises(ValueError):
         fleet_kernel.pd_substep(m, p, torch.empty(m.nq, B, device=meta),
