@@ -29,7 +29,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "apex_fleet_fk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "apex_spd_inverse": (_P, _P, _I, _I, _P),
-    "apex_pd_substep": (_P,) * 14 + (_I, _P),
+    "apex_pd_substep": (_P,) * 14 + (_I, _I, _I, _P),
+    "apex_pd_substep_info": (_I, _I, _P),
 }
 
 _LIB = None

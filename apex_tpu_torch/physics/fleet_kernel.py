@@ -10,9 +10,11 @@ in one program. Here:
 - `pd_substep_plain` is the same math on (B,) rows in plain PyTorch, in the
   phase order and the formula order of `_gen_kernel` (as the JAX package's
   `emulated_pd_substep` runs it);
-- `csrc/fleet_kernel.cu` is one fixed CUDA source for any tree model, one
-  thread per env, that reads the model as tables (`_k1_tables`) built once
-  per model and loops over them in that same order;
+- `csrc/fleet_kernel.cu` is one fixed CUDA source for any tree model, two
+  warps per env with its scratch in shared memory, that reads the model as
+  tables (`_k1_tables`) built once per model and loops over them in that
+  same order, the lanes over the independent work of each phase (the
+  schedule tables of `k1_schedule`, and the dof depths of O_DLVL);
 - `pd_substep` takes the plain version for CPU tensors only; for CUDA
   tensors it launches the kernel or raises.
 
@@ -25,6 +27,7 @@ terrain and the plane.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -850,15 +853,68 @@ def _mat2quat_rows(Rm):
 _HEADER = (
     "NB", "NV", "NQ", "NU", "NCON", "NCB", "NEQ", "NLIM", "NLIN", "NBALL",
     "ROOT_ORIGIN", "FEET", "LF", "RF", "NLCON", "NRCON", "NEQU", "HFIELD",
-    "O_BODY", "O_JOINT", "O_ANC_PTR", "O_ANC", "O_BANC_PTR", "O_BANC",
-    "O_BDOF_PTR", "O_BDOF", "O_DOFBODY", "O_CON", "O_CB", "O_LIM",
-    "O_LIMSUP_PTR", "O_LIMSUP", "O_SPRING", "O_LIN", "O_BALL", "O_ACT",
-    "O_EQ", "O_EQSUP", "O_EQU", "O_LCON", "O_RCON",
+    "NLVL", "NTASK", "DOF_DEPTH", "EQU_MASK", "O_BODY", "O_JOINT",
+    "O_ANC_PTR", "O_ANC", "O_BANC_PTR", "O_BANC", "O_BDOF_PTR", "O_BDOF",
+    "O_DOFBODY", "O_CON", "O_CB", "O_LIM", "O_LIMSUP_PTR", "O_LIMSUP",
+    "O_SPRING", "O_LIN", "O_BALL", "O_ACT", "O_EQ", "O_EQSUP", "O_EQU",
+    "O_LCON", "O_RCON", "O_LVL_PTR", "O_LVL", "O_DLVL_PTR", "O_DLVL",
+    "O_DESC_PTR", "O_DESC", "O_LTDL_PTR", "O_LTDL", "O_TASK", "O_BMASK",
     "F_BODY", "F_JOINT", "F_ARM", "F_CON", "F_LIM", "F_SPRING", "F_ACT",
     "F_EQ", "F_CONST",
 )
-# capacity of the kernel's per-thread scratch (csrc/fleet_kernel.cu)
-_LIMITS = dict(nbody=32, nv=32, nq=40, nu=16, ncon=32, ncb=16, neq=4)
+# capacity of the kernel's per-env scratch in shared memory
+# (csrc/fleet_kernel.cu); nv is also the warp's 32 lanes
+_LIMITS = dict(nbody=32, nv=32, nq=40, nu=16, ncon=32, ncb=16, neq=4,
+               nlim=32, chain=16)
+# the kinds of the one-lane restricted solves of the O_TASK table
+TASK_LAMBDA, TASK_LIMIT = 0, 1
+
+
+def k1_schedule(model: PhysModel):
+    """The lane schedule of the kernel's main warp, from the tree (the
+    O_LVL, O_LTDL and O_TASK tables of `_k1_tables`):
+
+    - `levels`: the bodies at each depth of the tree, ascending; a level's
+      bodies are the lanes of one tree step, after all of their parents;
+    - `ltdl`: per column k of the LTDL, in the serial loop's order, the
+      updates (i, j) of A[i, j] by row k: i in anc[k] descending, then j in
+      [i] + anc[i] descending; the lanes of column k (the table packs each
+      as tri(i, j) | tri(k, i) << 10 | tri(k, j) << 20);
+    - `tasks`: the one-lane restricted solves as (kind, index, support): 6
+      per contact body (index 6 c + r, row r of Lambda over the body's
+      ancestry), one per limit (anc[d] + [d]), both chains of the dof tree;
+      heaviest first, so that each round of 32 lanes holds solves of like
+      length. (The connect rows' solves run on the env's second warp, lane
+      = a dof of one depth and a group of rows.)
+    """
+    meta = meta_of(model)
+    st = meta.st
+    depth = [0] * model.nbody
+    for i in range(model.nbody):
+        p = int(model.body_parent[i])
+        depth[i] = 0 if p < 0 else depth[p] + 1
+    levels = [[i for i in range(model.nbody) if depth[i] == lv]
+              for lv in range(max(depth, default=-1) + 1)]
+    ltdl = [[(i, j) for i in reversed(meta.anc[k])
+             for j in [i] + list(reversed(meta.anc[i]))]
+            for k in range(model.nv)]
+    cost = lambda sup: sum(1 + 2 * len(meta.anc[k]) for k in sup)
+    tasks = [(TASK_LAMBDA, 6 * c + r, meta.body_anc[ub])
+             for c, ub in enumerate(meta.con_bodies) for r in range(6)]
+    tasks += [(TASK_LIMIT, li, meta.anc[int(d)] + [int(d)])
+              for li, d in enumerate(st.lim_dof)]
+    tasks.sort(key=lambda t: -cost(t[2]))
+    return levels, ltdl, tasks
+
+
+def _tri(d: int, w: int) -> int:
+    """Offset of entry (d, w), w <= d, in the packed lower triangle."""
+    return d * (d + 1) // 2 + w
+
+
+def _bits(dofs) -> int:
+    """The int32 bit pattern of a set of dofs (nv <= 32)."""
+    return int(np.uint32(sum(1 << d for d in dofs)).view(np.int32))
 
 
 def _k1_tables(model: PhysModel, device: torch.device):
@@ -872,7 +928,10 @@ def _k1_tables(model: PhysModel, device: torch.device):
     nb, nv = model.nbody, model.nv
     sizes = dict(nbody=nb, nv=nv, nq=model.nq, nu=model.nu,
                  ncon=len(model.contacts), ncb=len(meta.con_bodies),
-                 neq=len(model.equalities))
+                 neq=len(model.equalities), nlim=len(st.lim_dof),
+                 chain=max([len(meta.body_anc[b]) for b in meta.con_bodies]
+                           + [len(meta.anc[int(d)]) + 1 for d in st.lim_dof],
+                           default=0))
     over = {k: v for k, v in sizes.items() if v > _LIMITS[k]}
     if over:
         raise ValueError(f"model exceeds the kernel's capacity {_LIMITS}: "
@@ -887,7 +946,11 @@ def _k1_tables(model: PhysModel, device: torch.device):
         LF=meta.feet[0] if meta.feet else 0,
         RF=meta.feet[1] if meta.feet else 0,
         NLCON=len(meta.lcon), NRCON=len(meta.rcon),
-        NEQU=len(meta.eq_union), HFIELD=int(model.enable_hfield))
+        NEQU=len(meta.eq_union), HFIELD=int(model.enable_hfield),
+        DOF_DEPTH=1 + max((len(a) for a in meta.anc), default=-1),
+        EQU_MASK=_bits(meta.eq_union))
+    levels, ltdl, tasks = k1_schedule(model)
+    hdr.update(NLVL=len(levels), NTASK=len(tasks))
     ints: List[int] = [0] * len(_HEADER)
     floats: List[float] = []
 
@@ -940,6 +1003,24 @@ def _k1_tables(model: PhysModel, device: torch.device):
     isec("O_EQU", meta.eq_union)
     isec("O_LCON", meta.lcon)
     isec("O_RCON", meta.rcon)
+    ptr, flat = csr(levels)
+    isec("O_LVL_PTR", ptr)
+    isec("O_LVL", flat)
+    ptr, flat = csr([[d for d in range(nv) if len(meta.anc[d]) == lv]
+                     for lv in range(hdr["DOF_DEPTH"])])
+    isec("O_DLVL_PTR", ptr)
+    isec("O_DLVL", flat)
+    ptr, flat = csr([sorted((k for k in range(nv) if d in meta.anc[k]),
+                            reverse=True) for d in range(nv)])
+    isec("O_DESC_PTR", ptr)
+    isec("O_DESC", flat)
+    ptr, _ = csr(ltdl)
+    isec("O_LTDL_PTR", ptr)
+    isec("O_LTDL", [_tri(i, j) | _tri(k, i) << 10 | _tri(k, j) << 20
+                    for k in range(nv) for i, j in ltdl[k]])
+    isec("O_TASK", [v for kind, idx, _ in tasks for v in (kind, idx)])
+    # dof bit masks of the body ancestries, as int32 bit patterns
+    isec("O_BMASK", [_bits(meta.body_anc[b]) for b in range(nb)])
 
     fsec("F_BODY", [v for i in range(nb) for v in (
         *model.body_pos[i], *st.body_rot[i].reshape(-1),
@@ -1007,12 +1088,25 @@ def pd_substep(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
     err = lib.apex_pd_substep(
         *(x.data_ptr() for _, x, _ in ins[:7]),
         hf.data_ptr() if model.enable_hfield else None,
-        *(o.data_ptr() for o in outs), itab.data_ptr(), ftab.data_ptr(), B,
+        *(o.data_ptr() for o in outs), itab.data_ptr(), ftab.data_ptr(),
+        itab.numel(), ftab.numel(), B,
         torch.cuda.current_stream(qpos.device).cuda_stream)
     cuda_build.check(err, "apex_pd_substep")
     pd_substep.launches += 1
     pd_substep.hfield_launches += int(model.enable_hfield)
     return outs
+
+
+def launch_info(model: PhysModel) -> Dict[str, int]:
+    """K1's launch shape for `model` on the current card: shared memory per
+    block (the envs' scratch and the model's tables), envs per block (two
+    warps each), blocks and envs resident per SM."""
+    itab, ftab = _k1_tables(model, torch.device("cuda"))
+    out = (ctypes.c_int * 4)()
+    cuda_build.check(cuda_build.library().apex_pd_substep_info(
+        itab.numel(), ftab.numel(), out), "apex_pd_substep_info")
+    return dict(smem_bytes_per_block=out[0], envs_per_block=out[1],
+                blocks_per_sm=out[2], envs_per_sm=out[3])
 
 
 # launches of the kernel, and how many of them ran a heightfield model

@@ -16,12 +16,16 @@ each printed with its seconds as it ends:
   device     require CUDA; card name, power limit, torch and CUDA versions
   build      nvcc build of the kernels (seconds; registers and spills)
   K3, K2     each kernel against its plain version at B = 64 and 1024:
-             max error, kernel / plain / library ms, the roofline bound
-  K1         the substep kernel against its plain version at B = 64 and
+             max error, kernel / plain / library ms (kernel and library:
+             device time from torch.profiler), the roofline bound
+  K1         the substep kernel (two warps per env, scratch and tables in
+             shared memory) against its plain version at B = 64 and
              1024, on a perturbed fleet and near the standing pose
              (bounds from the plain version's rounding spread per row),
-             and against the fleet step at the JAX package's
-             megakernel-vs-fleet tolerances
+             five launches on the same inputs bit for bit, and against
+             the fleet step at the JAX package's megakernel-vs-fleet
+             tolerances; its registers, stack frame, shared memory per
+             block and envs resident per SM
   K1-hfield  the same for the heightfield branch on terrain fleets (noise
              and steps tables, envs beyond the table's edge, a quarter of
              the envs on the plane), and its plane envs against the flat
@@ -115,6 +119,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2) -> float:
+    """Mean device time per call of fn() over `iters` calls, from
+    torch.profiler's CUDA trace: for `kernel`, the mean duration of the
+    traced launches whose name holds it (the trace may miss one of a
+    burst); for "", the summed durations of every kernel over `iters`.
+    Events around back-to-back calls would time the host instead, once a
+    call's Python and launch work outlasts its kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.name]
+    if kernel and not 2 * len(on_card) >= iters or not on_card:
+        raise AssertionError(f"profiler saw {len(on_card)} launches of "
+                             f"{kernel or 'any kernel'} in {iters} calls")
+    per = len(on_card) if kernel else iters
+    return sum(e.time_range.elapsed_us() for e in on_card) / per / 1e3
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -296,9 +326,10 @@ def check_k3(gen, dev):
                                   resid=resid)
         A = cases[1][1]
         Abf = A.permute(2, 0, 1).contiguous()
-        ms = cuda_ms(lambda: pallas_linalg.spd_inverse_bt(A), 50)
+        ms = device_ms(lambda: pallas_linalg.spd_inverse_bt(A), 50,
+                       "spd_inverse_kernel")
         plain = cuda_ms(lambda: pallas_linalg.spd_inverse_bt_plain(A), 3, 1)
-        lib = cuda_ms(lambda: torch.linalg.inv(Abf), 50)
+        lib = device_ms(lambda: torch.linalg.inv(Abf), 50)
         # a Cholesky-based inverse: n^3/3 each for L, L^-1 and L^-T L^-1
         bnd, by, why = bound_ms(2 * A.numel() * 4, 32 ** 3 * B)
         out[("time", B)] = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -327,7 +358,8 @@ def check_k2(gen, dev):
         for name, a, b in zip(got._fields, got, ref):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
                                        msg=lambda s: f"K2 {name} B={B}: {s}")
-        ms = cuda_ms(lambda: fleet_fk.fleet_fk(m, ipos, qpos), 100)
+        ms = device_ms(lambda: fleet_fk.fleet_fk(m, ipos, qpos), 100,
+                       "fleet_fk_kernel")
         plain = cuda_ms(lambda: fleet_fk.fk_plain(m, ipos, qpos), 3, 1)
         rows = m.nq + 3 * m.nbody + (3 + 9 + 3) * m.nbody + 6 * m.nv
         bnd, by, why = bound_ms(rows * B * 4, fk_flops_per_env(m) * B)
@@ -493,6 +525,14 @@ def check_k1(gen, dev, build_log: str, terrain: float = 0.0):
         params, qpos, qvel, rows = k1_inputs(B, gen, dev, terrain)
         worst, plain_ms, force = k1_vs_plain(m, params, qpos, qvel, rows,
                                              gen, f"{tag} B={B}")
+        # the lanes of a warp share the env's scratch: a race between two
+        # phases would make repeated launches differ
+        first = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+        for _ in range(4):
+            again = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+            if not all(torch.equal(a, b) for a, b in zip(again, first)):
+                raise AssertionError(f"{tag} B={B}: five launches on the "
+                                     "same inputs differ")
         params_s, qpos_s, qvel_s, rows_s = k1_standing_inputs(
             B, gen, dev, terrain=terrain / 2)
         worst_s, _, _ = k1_vs_plain(m, params_s, qpos_s, qvel_s, rows_s,
@@ -514,8 +554,9 @@ def check_k1(gen, dev, build_log: str, terrain: float = 0.0):
             extra = (f"; plane envs bitwise equal to the flat kernel, "
                      f"terrain envs' qvel moved up to {moved:.3e}")
 
-        ms = cuda_ms(lambda: fleet_kernel.pd_substep(m, params, qpos, qvel,
-                                                     rows), 20)
+        ms = device_ms(lambda: fleet_kernel.pd_substep(m, params, qpos, qvel,
+                                                       rows), 20,
+                       "pd_substep_kernel")
         bnd, by, why = bound_ms(k1_bytes(m, params), k1_flops(m, params))
         out[B] = dict(max_abs_err=max(v[0] for v in (*worst.values(),
                                                       *worst_s.values())),
@@ -530,14 +571,16 @@ def check_k1(gen, dev, build_log: str, terrain: float = 0.0):
               + "; vs fleet "
               + ", ".join(f"{k} {d:.3e} (tol {t})"
                           for k, (d, t) in vs_fleet.items())
-              + f"{extra}; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+              + f"{extra}; five launches bitwise equal; kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.1f} ms, "
               f"bound {bnd * 1e3:.3f} us ({by}: {why}), library none",
               flush=True)
-    if not terrain:
-        regs = [ln.strip() for ln in build_log.split("== fleet_kernel.cu", 1)
-                [-1].split("==", 1)[0].splitlines()
-                if "registers" in ln or "stack frame" in ln]
-        print("  K1 " + " | ".join(regs), flush=True)
+    regs = [ln.strip() for ln in build_log.split("== fleet_kernel.cu", 1)
+            [-1].split("==", 1)[0].splitlines()
+            if "registers" in ln or "stack frame" in ln]
+    info = fleet_kernel.launch_info(m)
+    print(f"  {tag} " + " | ".join(regs) + "; launch: two warps per env, "
+          + ", ".join(f"{k} {v}" for k, v in info.items()), flush=True)
     return out
 
 

@@ -171,9 +171,10 @@ def test_substep_kernel_matches_plain(cuda, B):
 
 @pytest.mark.parametrize("B", [1, 33, 1000])
 def test_substep_kernel_is_per_env(cuda, B):
-    """One thread per env and no reduction across envs: the first B envs
-    of a 1024-env fleet, launched alone (a partial block), give the same
-    bits as in the full launch."""
+    """Two warps per env and no reduction across envs: the first B envs
+    of a 1024-env fleet, launched alone (fewer blocks; for B = 1 and 33
+    the last block holds one env of its two), give the same bits as in
+    the full launch."""
     m = cassie_model()
     params, qpos, qvel, rows = _k1_inputs(1024, 7, cuda)
     full = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
@@ -184,6 +185,26 @@ def test_substep_kernel_is_per_env(cuda, B):
     for a, b in zip(part, full):
         assert torch.equal(a, b[:, :B])
     assert float(part[3][0:2].abs().max()) > 0     # env 0 in contact
+
+
+@pytest.mark.parametrize("hfield", [False, True])
+def test_substep_kernel_is_deterministic(cuda, hfield):
+    """Five launches on the same inputs give the same bits: the lanes of
+    an env's two warps share its scratch in shared memory, and a missing
+    __syncwarp() or barrier between two phases would make a lane read a
+    value before or after another lane wrote it, depending on the card's
+    schedule."""
+    m = cassie_model(enable_hfield=hfield)
+    if hfield:
+        params, qpos, qvel, rows = _k1_terrain_inputs(1000, 11, cuda)
+    else:
+        params, qpos, qvel, rows = _k1_inputs(1000, 11, cuda)
+    first = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    for _ in range(4):
+        again = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+    assert float(first[3][0:2].abs().max()) > 0    # feet in contact
 
 
 def test_substep_kernel_refuses_bad_inputs(cuda):

@@ -187,26 +187,224 @@ def test_kernel_meta_matches_jax():
     assert len(ours.con_bodies) == 9 and len(ours.eq_union) == 32
 
 
+def _header(itab):
+    return dict(zip(fleet_kernel._HEADER,
+                    itab[:len(fleet_kernel._HEADER)].tolist()))
+
+
+def _section(itab, hdr, name, n):
+    return itab[hdr[name]:hdr[name] + n].tolist()
+
+
+def _csr(itab, hdr, name, n):
+    """A CSR section of the int table as a list of n lists."""
+    ptr = _section(itab, hdr, f"O_{name}_PTR", n + 1)
+    flat = itab[hdr[f"O_{name}"]:].tolist()
+    return [flat[ptr[i]:ptr[i + 1]] for i in range(n)]
+
+
+def _tri_entry(t):
+    """(d, w) of offset t in the packed lower triangle."""
+    d = int((np.sqrt(8 * t + 1) - 1) // 2)
+    return d, t - d * (d + 1) // 2
+
+
+def _ltdl_columns(itab, hdr, nv):
+    """Per column k the LTDL updates (i, j), read back from their packed
+    offsets, each checked to name row k."""
+    cols = []
+    for k, col in enumerate(_csr(itab, hdr, "LTDL", nv)):
+        pairs = []
+        for t in col:
+            (i, j), (k1, i1), (k2, j2) = (_tri_entry(t & 1023),
+                                          _tri_entry(t >> 10 & 1023),
+                                          _tri_entry(t >> 20))
+            assert (k1, k2, i1, j2) == (k, k, i, j), (k, t)
+            pairs.append((i, j))
+        cols.append(pairs)
+    return cols
+
+
 def test_kernel_tables_follow_the_cuda_header():
     """The int table's header order is the `Header` enum of the CUDA
-    source, and every section offset lies inside its table."""
+    source, and every section offset lies inside its table, for the flat
+    and the heightfield model; the schedule's scalars are Cassie's."""
     src = (ROOT / "apex_tpu_torch" / "csrc" / "fleet_kernel.cu").read_text()
     enum = re.search(r"enum Header \{([^}]*)\}", src).group(1)
     names = tuple(n.strip() for n in enum.split(",") if n.strip())
     assert names == fleet_kernel._HEADER
-    m = cassie_model()
-    itab, ftab = fleet_kernel._k1_tables(m, torch.device("cpu"))
-    hdr = dict(zip(names, itab[:len(names)].tolist()))
-    assert (hdr["NB"], hdr["NV"], hdr["NQ"], hdr["NU"], hdr["NCON"],
-            hdr["NEQ"], hdr["NLIM"]) == (25, 32, 35, 10, 17, 4, 16)
-    for name, off in hdr.items():
-        if name.startswith("O_"):
-            assert len(names) <= off <= itab.numel(), name
-        elif name.startswith("F_"):
-            assert 0 <= off < ftab.numel(), name
-    consts = ftab[hdr["F_CONST"]:hdr["F_CONST"] + 12].tolist()
-    assert consts[0] == pytest.approx(m.timestep)
-    assert consts[9:] == pytest.approx([0.0, 0.0, 9.81])
+    for hfield in (False, True):
+        m = cassie_model(enable_hfield=hfield)
+        itab, ftab = fleet_kernel._k1_tables(m, torch.device("cpu"))
+        hdr = dict(zip(names, itab[:len(names)].tolist()))
+        assert (hdr["NB"], hdr["NV"], hdr["NQ"], hdr["NU"], hdr["NCON"],
+                hdr["NEQ"], hdr["NLIM"]) == (25, 32, 35, 10, 17, 4, 16)
+        # 9 body levels, 6 x 9 Lambda rows + 16 limits, dofs up to 13
+        # ancestors deep
+        assert (hdr["NLVL"], hdr["NTASK"], hdr["DOF_DEPTH"],
+                hdr["HFIELD"]) == (9, 70, 14, int(hfield))
+        for name, off in hdr.items():
+            if name.startswith("O_"):
+                assert len(names) <= off <= itab.numel(), name
+            elif name.startswith("F_"):
+                assert 0 <= off < ftab.numel(), name
+        consts = ftab[hdr["F_CONST"]:hdr["F_CONST"] + 12].tolist()
+        assert consts[0] == pytest.approx(m.timestep)
+        assert consts[9:] == pytest.approx([0.0, 0.0, 9.81])
+    # the capacities of the kernel's scratch are those of `_LIMITS`
+    for name, key in (("kNb", "nbody"), ("kNv", "nv"), ("kNq", "nq"),
+                      ("kNu", "nu"), ("kNcon", "ncon"), ("kNcb", "ncb"),
+                      ("kNlim", "nlim"), ("kChain", "chain")):
+        got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
+        assert int(got) == fleet_kernel._LIMITS[key], name
+    assert fleet_kernel._LIMITS["nv"] == 32      # one lane per dof
+
+
+@pytest.mark.parametrize("hfield", [False, True])
+def test_kernel_schedule_assigns_every_pair_once(hfield):
+    """The lane schedule of the warp's phases, read back from the int
+    table: CRBA (lane = dof d, its pairs anc[d] + [d]) and every LTDL
+    column (its (i, j) list) each cover the ancestor pairs they must
+    exactly once; the tree levels hold every body once, after its parent,
+    and the dof depths every dof once, at its count of ancestors;
+    the one-lane solve tasks are every Lambda row and limit once."""
+    m = cassie_model(enable_hfield=hfield)
+    meta = fleet_kernel.meta_of(m)
+    itab, _ = fleet_kernel._k1_tables(m, torch.device("cpu"))
+    hdr = _header(itab)
+    nv, nb = m.nv, m.nbody
+    anc = _csr(itab, hdr, "ANC", nv)
+    assert anc == meta.anc
+    mask = meta.st.crba_mask
+    crba = [(d, w) for d in range(nv) for w in anc[d] + [d]]
+    assert len(crba) == len(set(crba)) == 307
+    assert set(crba) == {(d, w) for d in range(nv) for w in range(d + 1)
+                         if mask[d, w] > 0}
+    ltdl = _ltdl_columns(itab, hdr, nv)
+    for k in range(nv):
+        pairs = ltdl[k]
+        want = {(i, j) for i in anc[k] for j in [i] + anc[i]}
+        assert len(pairs) == len(set(pairs)) and set(pairs) == want, k
+        assert all(j <= i < k and mask[i, j] > 0 for i, j in pairs)
+    desc = _csr(itab, hdr, "DESC", nv)
+    assert desc == [sorted((k for k in range(nv) if d in anc[k]),
+                           reverse=True) for d in range(nv)]
+    dlevels = _csr(itab, hdr, "DLVL", hdr["DOF_DEPTH"])
+    assert sorted(d for lv in dlevels for d in lv) == list(range(nv))
+    assert all(len(anc[d]) == n for n, lv in enumerate(dlevels) for d in lv)
+    levels = _csr(itab, hdr, "LVL", hdr["NLVL"])
+    assert sorted(b for lv in levels for b in lv) == list(range(nb))
+    level_of = {b: n for n, lv in enumerate(levels) for b in lv}
+    for b in range(nb):
+        p = int(m.body_parent[b])
+        assert level_of[b] == (0 if p < 0 else level_of[p] + 1)
+    tasks = _section(itab, hdr, "O_TASK", 2 * hdr["NTASK"])
+    tasks = [tuple(tasks[2 * t:2 * t + 2]) for t in range(hdr["NTASK"])]
+    assert sorted(tasks) == sorted(
+        [(fleet_kernel.TASK_LAMBDA, i) for i in range(6 * hdr["NCB"])]
+        + [(fleet_kernel.TASK_LIMIT, i) for i in range(hdr["NLIM"])])
+    bmask = [v & 0xFFFFFFFF for v in _section(itab, hdr, "O_BMASK", nb)]
+    assert bmask == [sum(1 << d for d in meta.body_anc[b])
+                     for b in range(nb)]
+
+
+def _ltdl_serial(A, anc):
+    """The one-thread LTDL of the kernel (and `pd_substep_plain`), in
+    place on a dict of float32 entries; returns Dinv."""
+    nv = len(anc)
+    Dinv = [None] * nv
+    for k in reversed(range(nv)):
+        Dinv[k] = np.float32(1) / max(A[k, k], np.float32(1e-12))
+        for i in reversed(anc[k]):
+            a_ = A[k, i] * Dinv[k]
+            for j in [i] + list(reversed(anc[i])):
+                A[i, j] = A[i, j] - a_ * A[k, j]
+            A[k, i] = a_
+    return Dinv
+
+
+def _ltdl_lanes(A, anc, ltdl):
+    """The warp's LTDL: per column, every (i, j) update of the column's
+    list reads the entries as they stood when the column began (the lanes
+    run in any order), then row k is scaled."""
+    nv = len(anc)
+    Dinv = [None] * nv
+    for k in reversed(range(nv)):
+        dinv = np.float32(1) / max(A[k, k], np.float32(1e-12))
+        new = {(i, j): A[i, j] - (A[k, i] * dinv) * A[k, j]
+               for i, j in ltdl[k]}
+        A.update(new)
+        for i in anc[k]:
+            A[k, i] = A[k, i] * dinv
+        Dinv[k] = dinv
+    return Dinv
+
+
+@pytest.mark.parametrize("hfield", [False, True])
+def test_ltdl_schedule_reads_what_the_serial_loop_reads(hfield):
+    """Every LTDL update of the lane schedule comes after what it reads:
+    no update of a column reads an entry that another update of the same
+    column writes, and none reads row k after its scaling. Checked two
+    ways: by the entries each column reads and writes, and by running both
+    orders on M + hD of a dyn-rand Cassie fleet in float32, which must
+    agree bit for bit."""
+    m = cassie_model(enable_hfield=hfield)
+    meta = fleet_kernel.meta_of(m)
+    itab, _ = fleet_kernel._k1_tables(m, torch.device("cpu"))
+    hdr = _header(itab)
+    anc = meta.anc
+    ltdl = _ltdl_columns(itab, hdr, m.nv)
+    for k in range(m.nv):
+        pairs = ltdl[k]
+        writes = {(i, j) for i, j in pairs}
+        reads = {(k, i) for i, _ in pairs} | {(k, j) for _, j in pairs}
+        assert not writes & reads, k          # row k is only read
+        assert len(writes) == len(pairs)      # one lane per entry
+    qpos, qvel, cmd, params = _fleet(seed=3)
+    from apex_tpu_torch.physics import fleet
+    p = _port_params(params)
+    dyn = fleet._dynamics_bt(cassie_model(), p, torch.tensor(qpos),
+                             torch.tensor(qvel))
+    for b in range(B):
+        Mb = (dyn.M[:, :, b] + torch.diag(m.timestep * p.dof_damping[:, b])
+              ).numpy().astype(np.float32)
+        A1 = {(d, w): Mb[d, w] for d in range(m.nv) for w in anc[d] + [d]}
+        A2 = dict(A1)
+        D1, D2 = _ltdl_serial(A1, anc), _ltdl_lanes(A2, anc, ltdl)
+        assert all(A1[key].tobytes() == A2[key].tobytes() for key in A1)
+        assert [x.tobytes() for x in D1] == [x.tobytes() for x in D2]
+
+
+@pytest.mark.parametrize("hfield", [False, True])
+def test_solve_supports_are_ancestor_closed(hfield):
+    """Every restricted solve runs over a support that holds the ancestors
+    of each of its dofs, in ascending order (its L^T pass then stays inside
+    it): the Lambda and limit supports of the task table are chains (each
+    dof's ancestors are the entries before it), which their one-lane solve
+    assumes; the connect rows' union is EQU_MASK; and the warp's passes by
+    dof depth find every ancestor of a dof at a smaller depth."""
+    m = cassie_model(enable_hfield=hfield)
+    meta = fleet_kernel.meta_of(m)
+    itab, _ = fleet_kernel._k1_tables(m, torch.device("cpu"))
+    hdr = _header(itab)
+    anc = meta.anc
+    cbs = _section(itab, hdr, "O_CB", hdr["NCB"])
+    banc = _csr(itab, hdr, "BANC", m.nbody)
+    limsup = _csr(itab, hdr, "LIMSUP", hdr["NLIM"])
+    equ = _section(itab, hdr, "O_EQU", hdr["NEQU"])
+    tasks = _section(itab, hdr, "O_TASK", 2 * hdr["NTASK"])
+    for t in range(hdr["NTASK"]):
+        kind, idx = tasks[2 * t:2 * t + 2]
+        sup = (banc[cbs[idx // 6]] if kind == fleet_kernel.TASK_LAMBDA
+               else limsup[idx])
+        assert sup == sorted(set(sup)), (kind, idx)
+        assert all(anc[d] == sup[:e] for e, d in enumerate(sup)), (kind, idx)
+    assert equ == sorted(set(equ))
+    assert all(set(anc[d]) <= set(equ) for d in equ)
+    assert hdr["EQU_MASK"] & 0xFFFFFFFF == sum(1 << d for d in equ)
+    for d in range(m.nv):
+        assert all(len(anc[i]) < len(anc[d]) for i in anc[d])
+    assert max(len(a) for a in anc) + 1 == hdr["DOF_DEPTH"]
 
 
 def test_megakernel_tier_matches_the_fleet_tier():
