@@ -1,4 +1,4 @@
-// Forward kinematics for a whole env fleet, one thread per env (K2).
+// Forward kinematics for a whole env fleet, one warp per env (K2).
 //
 // Replaces the Pallas TPU kernel `_fk_kernel` of apex_tpu/physics/fleet_fk.py
 // (launched by `pallas_fk`). Same math in the same order as the batch-last
@@ -8,209 +8,375 @@
 // motion axis `cdof`, all origin-shifted by the root translation. Slide,
 // hinge (Rodrigues) and ball (quaternion) joints.
 //
-// What bounds it: bytes. Per env it reads qpos (nq rows) and body_ipos
-// (nb*3 rows) and writes xpos, xmat, xipos and cdof (nb*3 + nb*9 + nb*3 +
-// nv*6 rows) -- for Cassie 677 floats, 2.8 MB at B=1024 -- against ~3 kFLOP
-// per env. The design keeps the batch on the minor axis (row r of an
-// (rows, B) array is at r*B + b), so the 32 threads of a warp, which hold
-// 32 neighbouring envs, load and store 128 contiguous bytes per row. The
-// tree walk is sequential per env; the parent's frame is read back from the
-// rows this thread has just written (L1/L2 hits), so no per-model frame
-// stack is needed and the kernel takes any tree.
+// What bounds it: bytes, by the roofline. Per env it reads qpos (nq rows)
+// and body_ipos (nb*3 rows) and writes xpos, xmat, xipos and cdof (nb*3 +
+// nb*9 + nb*3 + nv*6 rows) -- for Cassie 677 floats, 2.8 MB at B = 1024 --
+// against ~3 kFLOP per env. In practice the tree walk's chain of dependent
+// steps bounds it: a body waits on its parent's frame.
 //
-// The model reaches the kernel as two small tables built by
-// apex_tpu_torch/physics/fleet_fk.py (`_fk_tables`), not as generated code:
-//   itab: per body  [parent, first joint, joint count, rot is identity]
-//         per joint [type, qposadr, dofadr, 0]
-//   ftab: per body  [pos(3), rot(9)]
-//         per joint [axis(3), ref, K(9), K@K(9)]   K = skew(axis)
+// The design:
+//   - A block of kEnvs warps owns kEnvs neighbouring envs. It loads their
+//     qpos and body_ipos rows, and stores their outputs, cooperatively: the
+//     kEnvs envs of a row are one 32-byte sector, and each thread keeps
+//     kBatch loads in flight. The four outputs are the rows of one buffer.
+//     Inputs, outputs and per-joint scratch of each env are staged in
+//     shared memory, and so are the model tables, so the walk reads
+//     nothing from device memory.
+//   - Each env's warp first computes, one joint per lane, each hinge's
+//     sinf and 1 - cosf of its angle and each ball's rotation from its
+//     normalised quaternion.
+//   - Then it walks the tree by depth, in rounds of at most 10 bodies whose
+//     parents are done: three lanes per body, lane a owning row a of the
+//     body's rotation and entry a of its position. Row a of a child's
+//     frame, and of each joint's update, needs only row a of the parent's,
+//     so the rows never exchange values. A body's joints stay in order on
+//     its three lanes. The parent's frame is read from the staged outputs.
+//   - Last, one lane per hinge or ball dof forms the linear part of cdof,
+//     axis x (-pos), from the staged axis and the position at that joint.
+// Every output value is computed by one lane with the expressions, and the
+// order of operations and FMA contractions, of the one-thread-per-env
+// kernel this design replaced (its SASS, read back with cuobjdump): so the
+// products and sums are written out with __fmaf_rn / __fmul_rn, and the
+// outputs are bit for bit those of that kernel.
+//
+// The model reaches the kernel as two tables built by
+// apex_tpu_torch/physics/fleet_fk.py (`_fk_tables`), not as generated code,
+// with the records 16-byte aligned for vector loads:
+//   itab: header [nbody, njoint, nround, ncross, nq, nv, root_origin,
+//                 stride (floats of shared memory per env)]
+//         round offsets (nround + 1) into the slots, padded to 4
+//         per slot (bodies in walk order)
+//                   [body, parent, first joint, joint count | rot is
+//                    identity << 8]
+//         per joint [type, qposadr, dofadr, 0]   (bodies' joints in order)
+//         per cross item [dof, joint]
+//   ftab: per slot  [pos(3), rot(9)]
+//         per joint [axis(3), ref, K(9), K@K(9), 0, 0]   K = skew(axis)
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kEnvs = 8;           // envs (= warps) per block
+constexpr int kThreads = kEnvs * 32;
+constexpr int kBatch = 8;          // loads in flight per thread
+constexpr int kRowStep = kThreads / kEnvs;  // rows apart of a thread's
+                                             // loads and stores
+constexpr int kHeader = 8;
+constexpr int kBodiesPerRound = 10;  // three lanes each
+constexpr int kJointScratch = 12;    // sin, 1 - cos or R(q); pos at joint
 constexpr int kSlide = 0;
 constexpr int kHinge = 1;
-constexpr int kBodyInts = 4;
-constexpr int kJointInts = 4;
-constexpr int kBodyFloats = 12;
-constexpr int kJointFloats = 22;
 
-__device__ __forceinline__ void mat_mul_c(const float R[3][3], const float* C,
-                                          float out[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      out[i][j] = R[i][0] * C[0 * 3 + j] + R[i][1] * C[1 * 3 + j] +
-                  R[i][2] * C[2 * 3 + j];
-}
-
-__device__ __forceinline__ void store_cdof(float* cdof, int dof, int B, int b,
-                                           const float ang[3],
-                                           const float lin[3]) {
-  float* row = cdof + (size_t)dof * 6 * B + b;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    row[(size_t)k * B] = ang[k];
-    row[(size_t)(3 + k) * B] = lin[k];
-  }
+// x0*y0 + x1*y1 + x2*y2, contracted as the one-thread kernel's SASS has it
+__device__ __forceinline__ float dot3(float x0, float x1, float x2, float y0,
+                                      float y1, float y2) {
+  return __fmaf_rn(x2, y2, __fmaf_rn(x0, y0, __fmul_rn(x1, y1)));
 }
 
 // lin = axis x (-pos), as fleet._fk_bt's _cross_bt(axis_w, -pos)
-__device__ __forceinline__ void cross_neg(const float a[3], const float p[3],
-                                          float out[3]) {
-  out[0] = a[1] * (-p[2]) - a[2] * (-p[1]);
-  out[1] = a[2] * (-p[0]) - a[0] * (-p[2]);
-  out[2] = a[0] * (-p[1]) - a[1] * (-p[0]);
+__device__ __forceinline__ void cross_neg(const float* a, const float* p,
+                                          float* out) {
+  out[0] = __fmaf_rn(a[2], p[1], -__fmul_rn(a[1], p[2]));
+  out[1] = __fmaf_rn(a[0], p[2], -__fmul_rn(a[2], p[0]));
+  out[2] = __fmaf_rn(a[1], p[0], -__fmul_rn(a[0], p[1]));
 }
 
-__global__ void fleet_fk_kernel(const float* __restrict__ qpos,
-                                const float* __restrict__ ipos,
-                                float* __restrict__ xpos,
-                                float* __restrict__ xmat,
-                                float* __restrict__ xipos,
-                                float* __restrict__ cdof,
-                                const int* __restrict__ itab,
-                                const float* __restrict__ ftab, int nbody,
-                                int root_origin, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int* jtab = itab + kBodyInts * nbody;
-  const float* jftab = ftab + kBodyFloats * nbody;
+// rotation of the unit quaternion q / |q| (w, x, y, z), row-major
+__device__ __forceinline__ void ball_rotation(const float* q, float* Rq) {
+  const float nrm = sqrtf(__fmaf_rn(
+      q[3], q[3], __fmaf_rn(q[2], q[2], __fmaf_rn(q[0], q[0],
+                                                  __fmul_rn(q[1], q[1])))));
+  const float w = q[0] / nrm, x = q[1] / nrm, y = q[2] / nrm, z = q[3] / nrm;
+  const float yy = __fmul_rn(y, y), zz = __fmul_rn(z, z);
+  const float xz = __fmul_rn(x, z), wx = __fmul_rn(w, x),
+              wz = __fmul_rn(w, z);
+  Rq[0] = 1.f - __fmul_rn(2.f, yy + zz);
+  Rq[1] = __fmul_rn(2.f, __fmaf_rn(x, y, -wz));
+  Rq[2] = __fmul_rn(2.f, __fmaf_rn(w, y, xz));
+  Rq[3] = __fmul_rn(2.f, __fmaf_rn(x, y, wz));
+  Rq[4] = 1.f - __fmul_rn(2.f, __fmaf_rn(x, x, zz));
+  Rq[5] = __fmul_rn(2.f, __fmaf_rn(y, z, -wx));
+  Rq[6] = __fmul_rn(2.f, __fmaf_rn(-w, y, xz));
+  Rq[7] = __fmul_rn(2.f, __fmaf_rn(y, z, wx));
+  Rq[8] = 1.f - __fmul_rn(2.f, __fmaf_rn(x, x, yy));
+}
 
-  float origin[3] = {0.f, 0.f, 0.f};
-  if (root_origin) {
+// A lane's record for a round of the walk: the slot's [body, parent, first
+// joint, joint count | rot is identity << 8] and its body's pos and rot;
+// `live` false past the round's bodies (then slot 0's, unused)
+struct Slot {
+  int4 rec;
+  float4 f[3];
+  int at;
+  bool live;
+};
+
+__device__ __forceinline__ Slot fetch_slot(const int* round_at,
+                                           const int4* rec,
+                                           const float4* bflt, int rd,
+                                           int item) {
+  Slot s;
+  s.at = round_at[rd] + item;
+  s.live = item < kBodiesPerRound && s.at < round_at[rd + 1];
+  if (!s.live) s.at = 0;
+  s.rec = rec[s.at];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) origin[k] = qpos[(size_t)k * B + b];
+  for (int k = 0; k < 3; ++k) s.f[k] = bflt[3 * s.at + k];
+  return s;
+}
+
+// v, opaque to the compiler: a value derived from the thread index stays in
+// its register through the walk instead of being recomputed every round
+__device__ __forceinline__ int kept(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
+int smem_bytes(int nitab, int nftab, int stride) {
+  return static_cast<int>(sizeof(float)) *
+         (((nitab + 3) & ~3) + ((nftab + 3) & ~3) + kEnvs * stride);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fleet_fk_kernel(const float* __restrict__ qpos,
+                    const float* __restrict__ ipos, float* __restrict__ out,
+                    const int* __restrict__ itab,
+                    const float* __restrict__ ftab, int nitab, int nftab,
+                    int B) {
+  extern __shared__ float4 k2_smem[];
+  unsigned* words = reinterpret_cast<unsigned*>(k2_smem);
+  const int* sint = reinterpret_cast<const int*>(words);
+  float* sflt = reinterpret_cast<float*>(words + ((nitab + 3) & ~3));
+  float* stage = sflt + ((nftab + 3) & ~3);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b0 = blockIdx.x * kEnvs;
+
+  const int nbody = itab[0], njoint = itab[1], nround = itab[2],
+            ncross = itab[3], nq = itab[4], nv = itab[5],
+            root_origin = itab[6], stride = itab[7];
+  // staged rows of an env: outputs, then inputs, then per-joint scratch
+  const int o_xmat = 3 * nbody, o_xipos = 12 * nbody, o_cdof = 15 * nbody;
+  const int n_out = o_cdof + 6 * nv;
+  const int o_qpos = n_out, o_ipos = n_out + nq;
+  const int n_in = nq + 3 * nbody;
+  const int o_scr = (n_out + n_in + 3) & ~3;
+
+  // ---- loads: the tables, and the block's input rows with thread t on
+  // env t % kEnvs and rows t / kEnvs + kRowStep u; kBatch loads of each in
+  // flight per thread before its shared stores
+  const int n_tab = nitab + nftab, f0 = (nitab + 3) & ~3;
+  const int m = threadIdx.x % kEnvs, r0 = threadIdx.x / kEnvs, b = b0 + m;
+  for (int it = 0;
+       it * kThreads * kBatch < n_tab || it * kRowStep * kBatch < n_in;
+       ++it) {
+    unsigned tv[kBatch];
+    float iv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = threadIdx.x + (it * kBatch + u) * kThreads;
+      tv[u] = t < nitab  ? static_cast<unsigned>(__ldg(itab + t))
+              : t < n_tab ? __float_as_uint(__ldg(ftab + (t - nitab)))
+                          : 0u;
+      const int r = r0 + (it * kBatch + u) * kRowStep;
+      iv[u] = r >= n_in || b >= B ? 0.f
+              : r < nq            ? __ldg(qpos + (size_t)r * B + b)
+                                  : __ldg(ipos + (size_t)(r - nq) * B + b);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = threadIdx.x + (it * kBatch + u) * kThreads;
+      if (t < n_tab) words[t < nitab ? t : f0 + (t - nitab)] = tv[u];
+      const int r = r0 + (it * kBatch + u) * kRowStep;
+      if (r < n_in) stage[m * stride + o_qpos + r] = iv[u];
+    }
   }
+  __syncthreads();
 
-  for (int i = 0; i < nbody; ++i) {
-    const int parent = itab[kBodyInts * i + 0];
-    const int j0 = itab[kBodyInts * i + 1];
-    const int nj = itab[kBodyInts * i + 2];
-    const int rot_identity = itab[kBodyInts * i + 3];
-    const float* bpos = ftab + kBodyFloats * i;
-    const float* brot = bpos + 3;
+  const int* round_at = sint + kHeader;
+  const int4* rec = reinterpret_cast<const int4*>(round_at +
+                                                  ((nround + 4) & ~3));
+  const int4* joint = rec + nbody;
+  const int* cross = reinterpret_cast<const int*>(joint + njoint);
+  const float4* bflt = reinterpret_cast<const float4*>(sflt);
+  const float4* jflt = bflt + 3 * nbody;
+  float* env = stage + kept(warp * stride);
+  const float* q = env + o_qpos;
+  float* scr = env + o_scr;
 
-    float p[3], R[3][3];
-    if (parent < 0) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) p[k] = bpos[k] - origin[k];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) R[a][c] = brot[3 * a + c];
-    } else {
-      float Rp[3][3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        p[a] = xpos[(size_t)(parent * 3 + a) * B + b];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          Rp[a][c] = xmat[(size_t)(parent * 9 + 3 * a + c) * B + b];
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        if (bpos[k] != 0.f) {
-#pragma unroll
-          for (int a = 0; a < 3; ++a) p[a] = p[a] + Rp[a][k] * bpos[k];
-        }
-      }
-      if (rot_identity) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-          for (int c = 0; c < 3; ++c) R[a][c] = Rp[a][c];
-      } else {
-        mat_mul_c(Rp, brot, R);
+  if (b0 + warp < B) {  // warps past B have no env
+    // ---- joints: one lane each, sin and 1 - cos of a hinge's angle, the
+    // rotation of a ball's normalised quaternion
+    for (int j = lane; j < njoint; j += 32) {
+      const int4 ji = joint[j];
+      float* s = scr + kJointScratch * j;
+      if (ji.x == kHinge) {
+        const float t = q[ji.y] - jflt[6 * j].w;
+        s[0] = sinf(t);
+        s[1] = 1.f - cosf(t);
+      } else if (ji.x != kSlide) {
+        ball_rotation(q + ji.y, s);
       }
     }
+    __syncwarp();
 
-    for (int jj = j0; jj < j0 + nj; ++jj) {
-      const int type = jtab[kJointInts * jj + 0];
-      const int qadr = jtab[kJointInts * jj + 1];
-      const int dadr = jtab[kJointInts * jj + 2];
-      const float* jf = jftab + kJointFloats * jj;
-      if (type == kSlide || type == kHinge) {
-        float aw[3];
+    // ---- walk: round by round, row a of each body on its own lane; the
+    // lane's next record is fetched while it works on the current one
+    const int item = kept(lane / 3), a = kept(lane % 3);
+    Slot cur = fetch_slot(round_at, rec, bflt, 0, item);
+    for (int rd = 0; rd < nround; ++rd) {
+      const Slot nxt = fetch_slot(round_at, rec, bflt, min(rd + 1, nround - 1),
+                                  item);
+      if (cur.live) {
+        const int i = cur.rec.x, parent = cur.rec.y, j0 = cur.rec.z;
+        const int nj = cur.rec.w & 0xff;
+        const float bpos[3] = {cur.f[0].x, cur.f[0].y, cur.f[0].z};
+        const float brot[9] = {cur.f[0].w, cur.f[1].x, cur.f[1].y,
+                               cur.f[1].z, cur.f[1].w, cur.f[2].x,
+                               cur.f[2].y, cur.f[2].z, cur.f[2].w};
+        const float* ip = q + (o_ipos - o_qpos) + 3 * i;
+        const float ip0 = ip[0], ip1 = ip[1], ip2 = ip[2];
+        float p, R[3];
+        if (parent < 0) {
+          const float* bf = reinterpret_cast<const float*>(bflt + 3 * cur.at);
+          p = bf[a] - (root_origin ? q[a] : 0.f);
 #pragma unroll
-        for (int a = 0; a < 3; ++a)
-          aw[a] = R[a][0] * jf[0] + R[a][1] * jf[1] + R[a][2] * jf[2];
-        const float t = qpos[(size_t)qadr * B + b] - jf[3];
-        if (type == kSlide) {
-#pragma unroll
-          for (int a = 0; a < 3; ++a) p[a] = p[a] + aw[a] * t;
-          const float zero[3] = {0.f, 0.f, 0.f};
-          store_cdof(cdof, dadr, B, b, zero, aw);
+          for (int c = 0; c < 3; ++c) R[c] = bf[3 + 3 * a + c];
         } else {
-          float RK[3][3], RKK[3][3];
-          mat_mul_c(R, jf + 4, RK);
-          mat_mul_c(R, jf + 13, RKK);
-          const float s = sinf(t);
-          const float c1 = 1.f - cosf(t);
+          p = env[3 * parent + a];
+          const float* rp = env + o_xmat + 9 * parent + 3 * a;
+          const float P[3] = {rp[0], rp[1], rp[2]};
 #pragma unroll
-          for (int a = 0; a < 3; ++a)
+          for (int k = 0; k < 3; ++k)
+            if (bpos[k] != 0.f) p = __fmaf_rn(P[k], bpos[k], p);
+          if (cur.rec.w >> 8) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) R[c] = P[c];
+          } else {
 #pragma unroll
             for (int c = 0; c < 3; ++c)
-              R[a][c] = R[a][c] + s * RK[a][c] + c1 * RKK[a][c];
-          float lin[3];
-          cross_neg(aw, p, lin);
-          store_cdof(cdof, dadr, B, b, aw, lin);
+              R[c] = dot3(P[0], P[1], P[2], brot[c], brot[3 + c], brot[6 + c]);
+          }
         }
-      } else {  // ball: unit quaternion (w, x, y, z), dofs in the child frame
-        float q[4];
+
+        for (int jj = j0; jj < j0 + nj; ++jj) {
+          // every operand of the joint, loaded before its type is known
+          const int4 ji = joint[jj];
+          float jf[24], sv[9];  // table; sin, 1 - cos or R(q)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) q[k] = qpos[(size_t)(qadr + k) * B + b];
-        const float nrm =
-            sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
-        const float w = q[0] / nrm, x = q[1] / nrm, y = q[2] / nrm,
-                    z = q[3] / nrm;
-        const float Rq[9] = {
-            1.f - 2.f * (y * y + z * z), 2.f * (x * y - w * z),
-            2.f * (x * z + w * y),       2.f * (x * y + w * z),
-            1.f - 2.f * (x * x + z * z), 2.f * (y * z - w * x),
-            2.f * (x * z - w * y),       2.f * (y * z + w * x),
-            1.f - 2.f * (x * x + y * y)};
-        float Rn[3][3];
-        mat_mul_c(R, Rq, Rn);
+          for (int k = 0; k < 6; ++k) {
+            const float4 f = jflt[6 * jj + k];
+            jf[4 * k] = f.x, jf[4 * k + 1] = f.y, jf[4 * k + 2] = f.z,
+            jf[4 * k + 3] = f.w;
+          }
+          float* s = scr + kJointScratch * jj;
 #pragma unroll
-        for (int a = 0; a < 3; ++a)
+          for (int k = 0; k < 2; ++k) {
+            const float4 f = reinterpret_cast<const float4*>(s)[k];
+            sv[4 * k] = f.x, sv[4 * k + 1] = f.y, sv[4 * k + 2] = f.z,
+            sv[4 * k + 3] = f.w;
+          }
+          sv[8] = s[8];
+          const float qv = q[ji.y];
+          float* cd = env + o_cdof + 6 * ji.z;
+          if (ji.x == kSlide) {
+            const float aw = dot3(R[0], R[1], R[2], jf[0], jf[1], jf[2]);
+            p = __fmaf_rn(aw, qv - jf[3], p);
+            cd[a] = 0.f;
+            cd[3 + a] = aw;
+          } else if (ji.x == kHinge) {
+            const float aw = dot3(R[0], R[1], R[2], jf[0], jf[1], jf[2]);
+            const float* K = jf + 4;
+            const float* KK = jf + 13;
+            float Rn[3];
 #pragma unroll
-          for (int c = 0; c < 3; ++c) R[a][c] = Rn[a][c];
+            for (int c = 0; c < 3; ++c) {
+              const float rk = dot3(R[0], R[1], R[2], K[c], K[3 + c], K[6 + c]);
+              const float rkk = dot3(R[0], R[1], R[2], KK[c], KK[3 + c],
+                                     KK[6 + c]);
+              Rn[c] = __fmaf_rn(sv[1], rkk, __fmaf_rn(sv[0], rk, R[c]));
+            }
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float aw[3] = {R[0][k], R[1][k], R[2][k]};
-          float lin[3];
-          cross_neg(aw, p, lin);
-          store_cdof(cdof, dadr + k, B, b, aw, lin);
+            for (int c = 0; c < 3; ++c) R[c] = Rn[c];
+            cd[a] = aw;
+            s[9 + a] = p;
+          } else {  // ball: R <- R @ R(q); dofs along the new columns
+            float Rn[3];
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+              Rn[c] = dot3(R[0], R[1], R[2], sv[c], sv[3 + c], sv[6 + c]);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              R[c] = Rn[c];
+              cd[6 * c + a] = Rn[c];
+            }
+            s[9 + a] = p;
+          }
         }
+
+        env[3 * i + a] = p;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) env[o_xmat + 9 * i + 3 * a + c] = R[c];
+        env[o_xipos + 3 * i + a] = dot3(R[0], R[1], R[2], ip0, ip1, ip2) + p;
       }
+      __syncwarp();
+      cur = nxt;
     }
 
-    const float* ip = ipos + (size_t)(i * 3) * B + b;
-    const float ip0 = ip[0], ip1 = ip[(size_t)B], ip2 = ip[(size_t)2 * B];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      xpos[(size_t)(i * 3 + a) * B + b] = p[a];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        xmat[(size_t)(i * 9 + 3 * a + c) * B + b] = R[a][c];
-      xipos[(size_t)(i * 3 + a) * B + b] =
-          p[a] + (R[a][0] * ip0 + R[a][1] * ip1 + R[a][2] * ip2);
+    // ---- cross: the linear part of each hinge and ball dof, from its axis
+    // and the position at its joint
+    for (int k = lane; k < ncross; k += 32) {
+      float* cd = env + o_cdof + 6 * cross[2 * k];
+      cross_neg(cd, scr + kJointScratch * cross[2 * k + 1] + 9, cd + 3);
     }
+  }
+  __syncthreads();
+
+  // ---- stores: the staged outputs, rows of `out`; thread t on env
+  // t % kEnvs and rows t / kEnvs + kRowStep u, kBatch shared loads before
+  // its global stores
+  for (int rb = r0; rb < n_out; rb += kRowStep * kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      v[u] = stage[m * stride + min(rb + kRowStep * u, n_out - 1)];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (rb + kRowStep * u < n_out && b < B)
+        out[(size_t)(rb + kRowStep * u) * B + b] = v[u];
   }
 }
 
 }  // namespace
 
-// Launches K2 on `stream`; returns cudaGetLastError() as an int (0 = ok).
-extern "C" int apex_fleet_fk(const float* qpos, const float* ipos, float* xpos,
-                             float* xmat, float* xipos, float* cdof,
-                             const int* itab, const float* ftab, int nbody,
-                             int root_origin, int B, void* stream) {
-  constexpr int kThreads = 64;
-  const int blocks = (B + kThreads - 1) / kThreads;
-  fleet_fk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      qpos, ipos, xpos, xmat, xipos, cdof, itab, ftab, nbody, root_origin, B);
+// Launches K2 on `stream`: `out` is one (15 nbody + 6 nv, B) buffer whose
+// rows are xpos, xmat, xipos and cdof; `stride` is the header's floats of
+// shared memory per env. Returns cudaGetLastError() as an int (0 = ok).
+extern "C" int apex_fleet_fk(const float* qpos, const float* ipos, float* out,
+                             const int* itab, const float* ftab, int nitab,
+                             int nftab, int stride, int B, void* stream) {
+  const int smem = smem_bytes(nitab, nftab, stride);
+  cudaError_t err = cudaFuncSetAttribute(
+      fleet_fk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (B + kEnvs - 1) / kEnvs;
+  fleet_fk_kernel<<<blocks, kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      qpos, ipos, out, itab, ftab, nitab, nftab, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch shape for tables of these sizes on the current card: out[0..3] =
+// shared memory per block, envs per block, blocks and envs resident per SM.
+extern "C" int apex_fleet_fk_info(int nitab, int nftab, int stride,
+                                  int* out) {
+  out[0] = smem_bytes(nitab, nftab, stride);
+  out[1] = kEnvs;
+  cudaError_t err = cudaFuncSetAttribute(
+      fleet_fk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[0]);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], fleet_fk_kernel, kThreads, out[0]);
+  out[3] = out[2] * kEnvs;
+  return static_cast<int>(err);
 }

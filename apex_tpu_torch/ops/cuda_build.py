@@ -27,8 +27,10 @@ _I = ctypes.c_int
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints)
 SIGNATURES = {
-    "apex_fleet_fk": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "apex_fleet_fk": (_P,) * 5 + (_I, _I, _I, _I, _P),
+    "apex_fleet_fk_info": (_I, _I, _I, _P),
     "apex_spd_inverse": (_P, _P, _I, _I, _P),
+    "apex_spd_inverse_info": (_I, _P),
     "apex_pd_substep": (_P,) * 14 + (_I, _I, _I, _P),
     "apex_pd_substep_info": (_I, _I, _P),
 }

@@ -2,11 +2,15 @@
 
 Counterpart of `apex_tpu/ops/pallas_linalg.py`, whose Pallas kernel
 inverts the damped mass matrix M + hD of every env once per substep. The
-kernel is `csrc/spd_inverse.cu`; its plain version is the unrolled Cholesky
-of `ops/linalg.py`. The wrapper takes the plain version for tensors on the
+kernel is `csrc/spd_inverse.cu`, one warp per matrix with a column per
+lane in registers, at a width of 8, 16 or 32; its plain version is the
+unrolled Cholesky of `ops/linalg.py`. The wrapper takes the plain version for tensors on the
 CPU only; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Dict
 
 import torch
 
@@ -40,6 +44,18 @@ def spd_inverse_bt(A: torch.Tensor) -> torch.Tensor:
     cuda_build.check(err, "apex_spd_inverse")
     spd_inverse_bt.launches += 1
     return out
+
+
+def launch_info(n: int) -> Dict[str, int]:
+    """K3's launch shape for (n, n) matrices on the current card: the width
+    it pads n to, shared memory per block, matrices per block (a warp
+    each), blocks and matrices resident per SM."""
+    out = (ctypes.c_int * 5)()
+    cuda_build.check(cuda_build.library().apex_spd_inverse_info(n, out),
+                     "apex_spd_inverse_info")
+    return dict(width=out[4], smem_bytes_per_block=out[0],
+                matrices_per_block=out[1], blocks_per_sm=out[2],
+                matrices_per_sm=out[3])
 
 
 spd_inverse_bt.launches = 0

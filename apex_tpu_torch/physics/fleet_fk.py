@@ -2,8 +2,9 @@
 
 Counterpart of `apex_tpu/physics/fleet_fk.py`, whose Pallas kernel runs the
 position pass of every env in one program. The kernel here is
-`csrc/fleet_fk.cu`, one thread per env walking the tree from two small
-tables built from the model (`_fk_tables`). Its plain version, `fk_plain`,
+`csrc/fleet_fk.cu`, one warp per env walking the tree by depth, three lanes
+per body, from tables built from the model (`_fk_tables`, with the walk's
+schedule from `fk_schedule`). Its plain version, `fk_plain`,
 is the port of the XLA branch of `apex_tpu/physics/fleet.py:_fk_bt`. The
 wrapper `fleet_fk` takes the plain version for tensors on the CPU only; for
 CUDA tensors it launches the kernel or raises.
@@ -12,7 +13,8 @@ Batch-last throughout: qpos (nq, B), body_ipos (nb, 3, B).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+import ctypes
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -175,30 +177,95 @@ def fk_plain(model: PhysModel, body_ipos: torch.Tensor,
 # the kernel
 # ---------------------------------------------------------------------------
 
-def _fk_tables(model: PhysModel, device: torch.device):
-    """(itab, ftab) device tensors describing the tree for the kernel
-    (layout documented in csrc/fleet_fk.cu); cached on the model per
-    device."""
+class FkTables(NamedTuple):
+    itab: torch.Tensor   # int32, layout in csrc/fleet_fk.cu
+    ftab: torch.Tensor   # float32
+    stride: int          # floats of shared memory per env
+
+
+BODIES_PER_ROUND = 10    # three lanes per body in a warp of 32
+JOINT_SCRATCH = 12       # csrc/fleet_fk.cu kJointScratch
+
+
+def fk_schedule(model: PhysModel):
+    """The kernel's walk: (rounds, cross). `rounds` lists the bodies of
+    each round, the tree by depth in chunks of at most BODIES_PER_ROUND,
+    so every parent lies in an earlier round; `cross` lists (dof, joint)
+    for each hinge and ball dof, whose linear part is formed after the
+    walk. Takes any tree in topological order (parent before child)."""
+    depth = []
+    for i in range(model.nbody):
+        p = int(model.body_parent[i])
+        if p >= i:
+            raise ValueError(f"body {i}: parent {p} is not before it")
+        depth.append(0 if p < 0 else depth[p] + 1)
+    rounds = []
+    for d in range(max(depth) + 1):
+        level = [i for i in range(model.nbody) if depth[i] == d]
+        rounds += [level[k:k + BODIES_PER_ROUND]
+                   for k in range(0, len(level), BODIES_PER_ROUND)]
+    cross = [(j.dofadr + k, jidx) for jidx, j in enumerate(model.joints)
+             if j.jtype != JointType.SLIDE
+             for k in range(1 if j.jtype == JointType.HINGE else 3)]
+    return rounds, cross
+
+
+def kin_views(model: PhysModel, out: torch.Tensor,
+              origin: torch.Tensor) -> FleetKin:
+    """FleetKin over the kernel's one output buffer (15 nbody + 6 nv, B):
+    its rows are xpos, xmat, xipos and cdof, each a contiguous view."""
+    nb, nv, B = model.nbody, model.nv, out.shape[-1]
+    return FleetKin(xpos=out[:3 * nb].view(nb, 3, B),
+                    ximat=out[3 * nb:12 * nb].view(nb, 3, 3, B),
+                    xipos=out[12 * nb:15 * nb].view(nb, 3, B),
+                    cdof=out[15 * nb:].view(nv, 6, B), origin=origin)
+
+
+def _fk_tables(model: PhysModel, device: torch.device) -> FkTables:
+    """The tables describing the tree and the walk for the kernel (layout
+    documented in csrc/fleet_fk.cu); cached on the model per device."""
     cache = model.__dict__.setdefault("_fk_tables", {})
     if device in cache:
         return cache[device]
+    if not model.joints:
+        raise ValueError("fleet_fk: the kernel takes a model with joints")
     st = _Structure.of(model)
-    ints, floats, jints, jfloats = [], [], [], []
-    for i in range(model.nbody):
-        ints += [int(model.body_parent[i]), len(jints) // 4,
-                 len(model.body_joints[i]), int(st.body_rot_identity[i])]
-        floats += list(model.body_pos[i]) + list(st.body_rot[i].reshape(-1))
-        for jidx in model.body_joints[i]:
-            j = model.joints[jidx]
-            K, KK = st.joint_K[jidx]
-            jints += [int(j.jtype), j.qposadr, j.dofadr, 0]
-            jfloats += (list(j.axis) + [j.ref] + list(K.reshape(-1))
-                        + list(KK.reshape(-1)))
-    itab = torch.tensor(ints + jints, dtype=torch.int32, device=device)
-    ftab = torch.tensor(np.asarray(floats + jfloats, np.float32),
+    nb, nv, nq = model.nbody, model.nv, model.nq
+    rounds, cross = fk_schedule(model)
+    # joint rows run body by body, so a body's joints are consecutive
+    rows = [jidx for i in range(nb) for jidx in model.body_joints[i]]
+    row_of = {jidx: r for r, jidx in enumerate(rows)}
+    offsets = np.cumsum([0] + [len(r) for r in rounds]).tolist()
+    offsets += [0] * (-len(offsets) % 4)
+    recs, bfloats = [], []
+    for i in (i for r in rounds for i in r):
+        js = model.body_joints[i]
+        recs += [i, int(model.body_parent[i]), row_of[js[0]] if js else 0,
+                 len(js) | int(st.body_rot_identity[i]) << 8]
+        bfloats += list(model.body_pos[i]) + list(st.body_rot[i].reshape(-1))
+    jints, jfloats = [], []
+    for jidx in rows:
+        j = model.joints[jidx]
+        K, KK = st.joint_K[jidx]
+        jints += [int(j.jtype), j.qposadr, j.dofadr, 0]
+        jfloats += (list(j.axis) + [j.ref] + list(K.reshape(-1))
+                    + list(KK.reshape(-1)) + [0.0, 0.0])
+    sched = [x for dof, jidx in cross for x in (dof, row_of[jidx])]
+    # staged floats per env: outputs, inputs, then (16-byte aligned) the
+    # per-joint scratch; 4 more than a multiple of 32, so that the block's
+    # 8 envs start on banks 4 apart and a warp's 8 envs x 4 rows of the
+    # cooperative copies hit 32 banks
+    n_io = (15 * nb + 6 * nv) + (nq + 3 * nb)
+    stride = n_io + (-n_io % 4) + JOINT_SCRATCH * len(model.joints)
+    stride += (4 - stride) % 32
+    header = [nb, len(model.joints), len(rounds), len(cross), nq, nv,
+              int(nv >= 3), stride]
+    itab = torch.tensor(header + offsets + recs + jints + sched,
+                        dtype=torch.int32, device=device)
+    ftab = torch.tensor(np.asarray(bfloats + jfloats, np.float32),
                         device=device)
-    cache[device] = (itab, ftab)
-    return itab, ftab
+    cache[device] = FkTables(itab, ftab, stride)
+    return cache[device]
 
 
 def fleet_fk(model: PhysModel, body_ipos: torch.Tensor,
@@ -219,23 +286,33 @@ def fleet_fk(model: PhysModel, body_ipos: torch.Tensor,
                 f"fleet_fk: {name} must be a contiguous float32 {shape} "
                 f"tensor on {qpos.device}, got {x.dtype} {tuple(x.shape)} "
                 f"contiguous={x.is_contiguous()} on {x.device}")
-    itab, ftab = _fk_tables(model, qpos.device)
-    xpos = torch.empty((nb, 3, B), dtype=qpos.dtype, device=qpos.device)
-    ximat = torch.empty((nb, 3, 3, B), dtype=qpos.dtype, device=qpos.device)
-    xipos = torch.empty((nb, 3, B), dtype=qpos.dtype, device=qpos.device)
-    cdof = torch.empty((nv, 6, B), dtype=qpos.dtype, device=qpos.device)
+    tabs = _fk_tables(model, qpos.device)
+    out = torch.empty((15 * nb + 6 * nv, B), dtype=qpos.dtype,
+                      device=qpos.device)
     lib = cuda_build.library()
     err = lib.apex_fleet_fk(
-        qpos.data_ptr(), body_ipos.data_ptr(), xpos.data_ptr(),
-        ximat.data_ptr(), xipos.data_ptr(), cdof.data_ptr(), itab.data_ptr(),
-        ftab.data_ptr(), nb, int(nv >= 3), B,
+        qpos.data_ptr(), body_ipos.data_ptr(), out.data_ptr(),
+        tabs.itab.data_ptr(), tabs.ftab.data_ptr(), tabs.itab.numel(),
+        tabs.ftab.numel(), tabs.stride, B,
         torch.cuda.current_stream(qpos.device).cuda_stream)
     cuda_build.check(err, "apex_fleet_fk")
     fleet_fk.launches += 1
     origin = (qpos[0:3] if nv >= 3
               else torch.zeros((3, B), dtype=qpos.dtype, device=qpos.device))
-    return FleetKin(xpos=xpos, ximat=ximat, xipos=xipos, cdof=cdof,
-                    origin=origin)
+    return kin_views(model, out, origin)
+
+
+def launch_info(model: PhysModel) -> Dict[str, int]:
+    """K2's launch shape for `model` on the current card: shared memory per
+    block (the envs' staged rows and the model's tables), envs per block
+    (a warp each), blocks and envs resident per SM."""
+    tabs = _fk_tables(model, torch.device("cuda"))
+    out = (ctypes.c_int * 4)()
+    cuda_build.check(cuda_build.library().apex_fleet_fk_info(
+        tabs.itab.numel(), tabs.ftab.numel(), tabs.stride, out),
+        "apex_fleet_fk_info")
+    return dict(smem_bytes_per_block=out[0], envs_per_block=out[1],
+                blocks_per_sm=out[2], envs_per_sm=out[3])
 
 
 fleet_fk.launches = 0

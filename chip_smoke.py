@@ -17,7 +17,10 @@ each printed with its seconds as it ends:
   build      nvcc build of the kernels (seconds; registers and spills)
   K3, K2     each kernel against its plain version at B = 64 and 1024:
              max error, kernel / plain / library ms (kernel and library:
-             device time from torch.profiler), the roofline bound
+             device time from torch.profiler), the roofline bound; K3 also
+             at n = 9 for 2048 envs, K2 also on a second tree
+             (`fk_tree_model`); registers, stack frame, shared memory per
+             block and blocks resident per SM
   K1         the substep kernel (two warps per env, scratch and tables in
              shared memory) against its plain version at B = 64 and
              1024, on a perturbed fleet and near the standing pose
@@ -127,20 +130,25 @@ def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2) -> float:
     traced launches whose name holds it (the trace may miss one of a
     burst); for "", the summed durations of every kernel over `iters`.
     Events around back-to-back calls would time the host instead, once a
-    call's Python and launch work outlasts its kernel."""
+    call's Python and launch work outlasts its kernel. A trace that holds
+    fewer than half the launches is taken once more (the profiler now and
+    then returns a trace without its device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(2):
         torch.cuda.synchronize()
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and kernel in e.name]
-    if kernel and not 2 * len(on_card) >= iters or not on_card:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel in e.name]
+        if on_card and (not kernel or 2 * len(on_card) >= iters):
+            break
+    else:
         raise AssertionError(f"profiler saw {len(on_card)} launches of "
                              f"{kernel or 'any kernel'} in {iters} calls")
     per = len(on_card) if kernel else iters
@@ -270,6 +278,73 @@ def k1_bytes(model, params) -> int:
 
 # ---------------------------------------------------------------------------
 
+def fk_tree_model(spec=None):
+    """A 26-body tree for K2 beside Cassie's, built with a `physics/spec.py`
+    module (the port's by default): a root of two slides and a hinge (as
+    Walker2d's), a ball joint mid-chain, a body with a hinge, a slide and a
+    hinge, a branch of depth 10 (Cassie's deepest body is at 8) beside one
+    of depth 3, a level of 13 bodies (two rounds of the kernel's walk), and
+    bodies without joints, with zero offsets and with rotated frames."""
+    if spec is None:
+        from apex_tpu_torch.physics import spec
+    J = spec.JointType
+    rng = np.random.default_rng(5)
+    # (parent, joint types); bodies in topological order
+    bodies = [(-1, (J.SLIDE, J.SLIDE, J.HINGE)), (0, (J.HINGE,)),
+              (1, (J.BALL,)), (2, (J.HINGE, J.SLIDE, J.HINGE))]
+    bodies += [(3 + k, (J.HINGE,)) for k in range(6)]       # bodies 4-9
+    bodies += [(0, (J.HINGE,)), (10, (J.BALL,)), (10, ())]  # bodies 10-12
+    bodies += [(11, (J.HINGE,) if k % 3 else ()) for k in range(12)]
+    bodies += [(9, (J.HINGE,))]                             # body 25
+    nb = len(bodies)
+    joints, body_joints, q, v = [], [], 0, 0
+    for i, (_, types) in enumerate(bodies):
+        body_joints.append(tuple(range(len(joints),
+                                       len(joints) + len(types))))
+        for jt in types:
+            axis = rng.normal(size=3)
+            if len(joints) < 3:
+                axis = np.eye(3)[[0, 2, 1][len(joints)]]
+            joints.append(spec.Joint(
+                body=i, jtype=jt, axis=axis / np.linalg.norm(axis),
+                pos=np.zeros(3), ref=float(rng.normal(0, 0.3)) * (
+                    jt != J.BALL), qposadr=q, dofadr=v, range=(-1.0, 1.0),
+                limited=False, stiffness=0.0, damping=0.1, armature=0.01))
+            q += spec.QPOS_WIDTH[jt]
+            v += spec.DOF_WIDTH[jt]
+    pos = rng.normal(0, 0.2, size=(nb, 3))
+    pos[rng.random((nb, 3)) < 0.3] = 0.0
+    quat = rng.normal(size=(nb, 4))
+    quat[::3] = [1.0, 0.0, 0.0, 0.0]
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    qpos0 = np.zeros(q)
+    for j in joints:
+        if j.jtype == J.BALL:
+            qpos0[j.qposadr] = 1.0
+    return spec.PhysModel(
+        nbody=nb, nq=q, nv=v, nu=0,
+        body_parent=np.array([p for p, _ in bodies], np.int32),
+        body_pos=pos, body_quat=quat, body_mass=np.ones(nb),
+        body_ipos=rng.normal(0, 0.05, size=(nb, 3)),
+        body_inertia=np.tile(0.01 * np.eye(3), (nb, 1, 1)),
+        joints=tuple(joints), body_joints=tuple(body_joints), actuators=(),
+        contacts=(), equalities=(), dof_damping=np.full(v, 0.1),
+        dof_armature=np.full(v, 0.01), qpos0=qpos0,
+        body_names=tuple(f"body{i}" for i in range(nb)))
+
+
+def fk_tree_inputs(m, B: int, gen: torch.Generator):
+    """qpos (nq, B) and body_ipos (nb, 3, B) for `fk_tree_model`: angles and
+    slides N(0, 0.7^2) around qpos0, ball quaternions drawn at random and
+    left unnormalised (the kernel normalises them), COM offsets around the
+    model's."""
+    qpos = torch.tensor(m.qpos0, dtype=torch.float32)[:, None] \
+        + 0.7 * torch.randn(m.nq, B, generator=gen)
+    ipos = torch.tensor(m.body_ipos, dtype=torch.float32)[:, :, None] \
+        + 0.01 * torch.randn(m.nbody, 3, B, generator=gen)
+    return qpos.contiguous(), ipos.contiguous()
+
+
 def random_spd(B: int, n: int, gen: torch.Generator) -> torch.Tensor:
     X = torch.randn(B, n, n, generator=gen, dtype=torch.float64)
     A = X @ X.transpose(1, 2) / n + 0.1 * torch.eye(n, dtype=torch.float64)
@@ -296,19 +371,36 @@ def cassie_inputs(B: int, gen: torch.Generator):
     return qpos, qvel, params
 
 
-def check_k3(gen, dev):
-    """K3 against its plain version on random SPD and on Cassie M + hD."""
+def build_report(build_log: str, source: str = "") -> str:
+    """The compiler's register, stack and spill lines of a build log, of
+    one source's section where `source` names it."""
+    if source:
+        build_log = build_log.split(f"== {source}", 1)[-1].split("\n==", 1)[0]
+    return " | ".join(ln.strip() for ln in build_log.splitlines()
+                      if "registers" in ln or "stack frame" in ln)
+
+
+def cassie_mhd(B: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """M + hD of a dyn-rand Cassie fleet (`cassie_inputs`), as the fleet
+    step inverts it: (32, 32, B) on `dev`."""
+    m = cassie_model()
+    qpos, qvel, params = cassie_inputs(B, gen)
+    params = PhysParams(**{k: v.to(dev) for k, v in vars(params).items()})
+    dyn = fleet._dynamics_bt(m, params, qpos.to(dev), qvel.to(dev))
+    mhd = dyn.M.clone()
+    mhd.diagonal(dim1=0, dim2=1).add_(m.timestep * params.dof_damping.T)
+    return mhd.contiguous()
+
+
+def check_k3(gen, dev, build_log: str):
+    """K3 against its plain version on random SPD and on Cassie M + hD at
+    n = 32, and on random SPD at Walker2d's n = 9 for 2048 envs (the
+    kernel pads it to a width of 16)."""
     out = {}
     for B in (N_ENVS, FLEET):
-        m = cassie_model()
-        qpos, qvel, params = cassie_inputs(B, gen)
-        to = lambda p: PhysParams(**{k: v.to(dev) for k, v in vars(p).items()})
-        dyn = fleet._dynamics_bt(m, to(params), qpos.to(dev), qvel.to(dev))
-        mhd = dyn.M.clone()
-        mhd.diagonal(dim1=0, dim2=1).add_(
-            m.timestep * to(params).dof_damping.T)
+        mhd = cassie_mhd(B, gen, dev)
         cases = (("random", random_spd(B, 32, gen).to(dev), 1e-5),
-                 ("cassie", mhd.contiguous(), 2e-3))
+                 ("cassie", mhd, 2e-3))
         for name, A, rel in cases:
             got = pallas_linalg.spd_inverse_bt(A)
             ref = pallas_linalg.spd_inverse_bt_plain(A)
@@ -341,12 +433,41 @@ def check_k3(gen, dev):
               f"{out[('cassie', B)]['resid']:.2e}; kernel {ms:.4f} ms, "
               f"plain {plain:.3f} ms, torch.linalg.inv {lib:.4f} ms, "
               f"bound {bnd * 1e3:.3f} us ({by}: {why})", flush=True)
+    n, B = 9, 2048
+    own = torch.Generator()      # leaves `gen`'s draws to the later phases
+    own.manual_seed(n)
+    A = random_spd(B, n, own).to(dev)
+    got = pallas_linalg.spd_inverse_bt(A)
+    ref = pallas_linalg.spd_inverse_bt_plain(A)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    if not (np.isfinite(err) and err <= 1e-5 * scale):
+        raise AssertionError(f"K3 random n={n} B={B}: max err {err:.3e} > "
+                             f"1e-05 x max|A^-1| {scale:.3e}")
+    ms = device_ms(lambda: pallas_linalg.spd_inverse_bt(A), 50,
+                   "spd_inverse_kernel")
+    Abf = A.permute(2, 0, 1).contiguous()
+    lib = device_ms(lambda: torch.linalg.inv(Abf), 50)
+    bnd, by, why = bound_ms(2 * A.numel() * 4, n ** 3 * B)
+    out[("time", (n, B))] = dict(ms=ms, library_ms=lib, bound_ms=bnd,
+                                 bound_by=by)
+    print(f"  K3 n={n} B={B}: random err {err / scale:.2e} of max; kernel "
+          f"{ms:.4f} ms, torch.linalg.inv {lib:.4f} ms, bound "
+          f"{bnd * 1e3:.3f} us ({by}: {why})", flush=True)
+    print(f"  K3 {build_report(build_log, 'spd_inverse.cu')}; launch: a warp "
+          f"per matrix, n = 32: {pallas_linalg.launch_info(32)}, n = 9: "
+          f"{pallas_linalg.launch_info(9)}", flush=True)
     return out
 
 
-def check_k2(gen, dev):
-    """K2 against its plain version on a perturbed dyn-rand fleet."""
+def check_k2(gen, dev, build_log: str):
+    """K2 against its plain version on a perturbed dyn-rand fleet, and on
+    `fk_tree_model`'s tree."""
     m = cassie_model()
+    tree = fk_tree_model()
+    tree_gen = torch.Generator()  # leaves `gen`'s draws to later phases
+    tree_gen.manual_seed(1)
     out = {}
     for B in (N_ENVS, FLEET):
         qpos, _, params = cassie_inputs(B, gen)
@@ -365,9 +486,21 @@ def check_k2(gen, dev):
         bnd, by, why = bound_ms(rows * B * 4, fk_flops_per_env(m) * B)
         out[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                       bound_by=by)
-        print(f"  K2 B={B}: max err {err:.3e}; kernel {ms:.4f} ms, plain "
-              f"{plain:.3f} ms, bound {bnd * 1e3:.3f} us ({by}: {why})",
-              flush=True)
+        tq, tip = fk_tree_inputs(tree, B, tree_gen)
+        tq, tip = tq.to(dev), tip.to(dev)
+        got = fleet_fk.fleet_fk(tree, tip, tq)
+        ref = fleet_fk.fk_plain(tree, tip, tq)
+        torch.cuda.synchronize()
+        for name, a, b in zip(got._fields, got, ref):
+            torch.testing.assert_close(
+                a, b, rtol=1e-5, atol=1e-5,
+                msg=lambda s: f"K2 tree {name} B={B}: {s}")
+        tree_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        print(f"  K2 B={B}: max err {err:.3e} (tree {tree_err:.3e}); kernel "
+              f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bnd * 1e3:.3f} us "
+              f"({by}: {why})", flush=True)
+    print(f"  K2 {build_report(build_log, 'fleet_fk.cu')}; launch: a warp per "
+          f"env, {fleet_fk.launch_info(m)}", flush=True)
     return out
 
 
@@ -575,11 +708,9 @@ def check_k1(gen, dev, build_log: str, terrain: float = 0.0):
               f"ms, plain {plain_ms:.1f} ms, "
               f"bound {bnd * 1e3:.3f} us ({by}: {why}), library none",
               flush=True)
-    regs = [ln.strip() for ln in build_log.split("== fleet_kernel.cu", 1)
-            [-1].split("==", 1)[0].splitlines()
-            if "registers" in ln or "stack frame" in ln]
     info = fleet_kernel.launch_info(m)
-    print(f"  {tag} " + " | ".join(regs) + "; launch: two warps per env, "
+    print(f"  {tag} {build_report(build_log, 'fleet_kernel.cu')}; launch: "
+          "two warps per env, "
           + ", ".join(f"{k} {v}" for k, v in info.items()), flush=True)
     return out
 
@@ -852,10 +983,10 @@ def main() -> int:
     gen = torch.Generator()
     gen.manual_seed(0)
     t0 = time.time()
-    k3 = check_k3(gen, dev)
+    k3 = check_k3(gen, dev, build_log)
     phase("K3", t0)
     t0 = time.time()
-    k2 = check_k2(gen, dev)
+    k2 = check_k2(gen, dev, build_log)
     phase("K2", t0)
     t0 = time.time()
     k1 = check_k1(gen, dev, build_log)
@@ -944,6 +1075,7 @@ def main() -> int:
                 "K1-hfield": {k: v for k, v in k1h[FLEET].items()
                               if k != "max_abs_err"},
                 "K3": k3[("time", FLEET)],
+                "K3 n=9 B=2048": k3[("time", (9, 2048))],
                 "K2": {k: v for k, v in k2[FLEET].items()
                        if k != "max_abs_err"}}
     print(f"at B={FLEET}: {json.dumps(at_fleet)}", flush=True)

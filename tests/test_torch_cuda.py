@@ -13,7 +13,8 @@ from apex_tpu_torch.ops import pallas_linalg
 from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
-from chip_smoke import k1_inputs, k1_standing_inputs
+from chip_smoke import (fk_tree_inputs, fk_tree_model, k1_inputs,
+                        k1_standing_inputs, random_spd)
 
 
 @pytest.fixture
@@ -42,13 +43,28 @@ def _fleet(B, seed):
     return qpos, qvel, params
 
 
-@pytest.mark.parametrize("B", [1, 64, 1000, 1024])
-def test_fk_kernel_matches_plain(cuda, B):
+def _fk_inputs(which, B, cuda):
+    """(model, body_ipos, qpos) on the card: a dyn-rand Cassie fleet, or
+    `chip_smoke.fk_tree_model`'s tree (slide and hinge root, a ball joint
+    mid-chain, a body of three joints, depth 10, a level of 13 bodies)."""
+    if which == "cassie":
+        qpos, _, params = _fleet(B, seed=B)
+        return cassie_model(), params.body_ipos.to(cuda), qpos.to(cuda)
+    m = fk_tree_model()
+    gen = torch.Generator()
+    gen.manual_seed(B)
+    qpos, ipos = fk_tree_inputs(m, B, gen)
+    return m, ipos.to(cuda), qpos.to(cuda)
+
+
+@pytest.mark.parametrize("which", ["cassie", "tree"])
+@pytest.mark.parametrize("B", [1, 33, 64, 1000, 1024])
+def test_fk_kernel_matches_plain(cuda, which, B):
     """K2 against fk_plain on the card: f32 rounding of a 25-body chain
-    (FMA contraction, CUDA's sinf/cosf within 2 ulp)."""
-    m = cassie_model()
-    qpos, _, params = _fleet(B, seed=B)
-    qpos, ipos = qpos.to(cuda), params.body_ipos.to(cuda)
+    (FMA contraction, CUDA's sinf/cosf within 2 ulp), and of a second tree
+    that Cassie's shape does not cover; B = 1 and 33 leave partial
+    blocks."""
+    m, ipos, qpos = _fk_inputs(which, B, cuda)
     before = fleet_fk.fleet_fk.launches
     got = fleet_fk.fleet_fk(m, ipos, qpos)
     assert fleet_fk.fleet_fk.launches == before + 1
@@ -58,11 +74,13 @@ def test_fk_kernel_matches_plain(cuda, B):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,B", [(32, 1), (32, 64), (32, 1000), (9, 64)])
+@pytest.mark.parametrize("n,B", [(32, 1), (32, 64), (32, 1000), (9, 64),
+                                 (1, 64), (16, 1000), (9, 2048), (32, 33)])
 def test_spd_inverse_kernel_matches_plain(cuda, n, B):
     """K3 against the unrolled Cholesky on random SPD: 1e-5 of max|A^-1|
     (f32 rounding times a condition number ~1e2); B not a multiple of the
-    block's 8 matrices and n < 32 exercise the padding."""
+    block's 8 matrices and n below the kernel's width (8, 16 or 32)
+    exercise the padding."""
     gen = torch.Generator()
     gen.manual_seed(n * B)
     X = torch.randn(B, n, n, generator=gen, dtype=torch.float64)
@@ -75,6 +93,27 @@ def test_spd_inverse_kernel_matches_plain(cuda, n, B):
     torch.cuda.synchronize()
     scale = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-5 * scale
+
+
+def test_fk_and_spd_inverse_kernels_are_deterministic(cuda):
+    """Five launches on the same inputs give the same bits: the lanes of a
+    warp share their env's or matrix's rows in shared memory, and a missing
+    __syncwarp() or __syncthreads() would make a lane read a value before
+    or after another lane wrote it, depending on the card's schedule."""
+    for which in ("cassie", "tree"):
+        m, ipos, qpos = _fk_inputs(which, 1000, cuda)
+        first = fleet_fk.fleet_fk(m, ipos, qpos)
+        for _ in range(4):
+            again = fleet_fk.fleet_fk(m, ipos, qpos)
+            for a, b in zip(again, first):
+                assert torch.equal(a, b), which
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    for n in (9, 32):
+        A = random_spd(1000, n, gen).to(cuda)
+        first = pallas_linalg.spd_inverse_bt(A)
+        for _ in range(4):
+            assert torch.equal(pallas_linalg.spd_inverse_bt(A), first), n
 
 
 def test_kernel_wrappers_refuse_bad_inputs(cuda):

@@ -24,6 +24,7 @@ from apex_tpu_torch.ops import pallas_linalg
 from apex_tpu_torch.physics import fleet, fleet_fk
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
+from chip_smoke import fk_tree_model
 
 CPU = torch.device("cpu")
 B_TEST = 8   # one batch size, so each jitted JAX function compiles once
@@ -130,6 +131,31 @@ def test_fk_plain_matches_jax(q_noise):
     got = fleet_fk.fleet_fk(cassie_model(), torch.tensor(ipos),
                             torch.tensor(qpos))
     xla, pal = _jax_fk(jnp.asarray(ipos), jnp.asarray(qpos))
+    for name, g, x, p in zip(("xpos", "ximat", "xipos", "cdof", "origin"),
+                             got, xla, pal):
+        for ref in (x, p):
+            np.testing.assert_allclose(g.numpy(), np.asarray(ref),
+                                       rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_fk_plain_matches_jax_on_a_second_tree():
+    """The FK of `chip_smoke.fk_tree_model`'s 26-body tree (slide and hinge
+    root, a ball joint mid-chain, a body of three joints, depth 10), built
+    with each package's own `physics/spec.py`, against the XLA batch-last
+    FK and the Pallas FK kernel in interpret mode, on the same numpy-drawn
+    qpos (ball quaternions unnormalised) and COM offsets: f32 rounding."""
+    from apex_tpu.physics import spec as jax_spec
+
+    m, jm = fk_tree_model(), fk_tree_model(jax_spec)
+    rng = np.random.default_rng(7)
+    qpos = (m.qpos0[:, None] + 0.7 * rng.normal(size=(m.nq, B_TEST))
+            ).astype(np.float32)
+    ipos = (m.body_ipos[:, :, None] + 0.01 * rng.normal(
+        size=(m.nbody, 3, B_TEST))).astype(np.float32)
+    got = fleet_fk.fleet_fk(m, torch.tensor(ipos), torch.tensor(qpos))
+    xla = jax_fleet._fk_bt(jm, jnp.asarray(ipos), jnp.asarray(qpos))
+    pal = pallas_fk(jm, jnp.asarray(ipos), jnp.asarray(qpos),
+                    block_b=B_TEST, interpret=True)
     for name, g, x, p in zip(("xpos", "ximat", "xipos", "cdof", "origin"),
                              got, xla, pal):
         for ref in (x, p):
