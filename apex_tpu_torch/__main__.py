@@ -1,11 +1,16 @@
-"""Command line of the port: `python -m apex_tpu_torch {ppo,eval} ...`.
+"""Command line of the port: `python -m apex_tpu_torch {ppo,td3_sync,
+td3_async,ddpg,rdpg,ars,eval} ...`.
 
-The subcommands and their flags mirror `apex.py ppo` (apex.py:70-105, with
-`_common_env_args`) and `apex.py eval` (apex.py:168-274). Both run on the
-GPU; `--device cpu` runs the plain PyTorch versions of the kernels on the
-CPU. `eval --physics` picks the PD scan's tier (K1 "megakernel" or
-"fleet"); left out, and always for `ppo`, the device's default (megakernel
-on CUDA, fleet on the CPU).
+The subcommands and their flags mirror `apex.py` (apex.py:70-166, with
+`_common_env_args`, and apex.py:168-274 for eval). They run on the GPU;
+`--device cpu` runs the plain PyTorch versions of the kernels on the CPU.
+`eval --physics` picks the PD scan's tier (K1 "megakernel" or "fleet");
+left out, and always for the learners, the device's default (megakernel
+on CUDA, fleet on the CPU). The run directory's name hashes the namespace
+and experiment.pkl stores it, so the learners get apex.py's namespace:
+the subcommand and `--device` are taken out first. `rdpg`, `ars
+--recurrent`, `ppo --recurrent` and `ppo --previous` are not ported yet
+and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -75,6 +80,63 @@ def main(argv=None) -> int:
     _common_env_args(pp)
     _device_args(pp)
 
+    for cmd in ("td3_sync", "td3_async"):
+        td = sub.add_parser(cmd, help=f"train with TD3 (apex.py {cmd})")
+        td.add_argument("--logdir", type=str,
+                        default=f"./trained_models/{cmd}/")
+        td.add_argument("--seed", default=0, type=int)
+        td.add_argument("--start_timesteps", default=10000, type=int)
+        td.add_argument("--eval_freq", default=5000, type=int)
+        td.add_argument("--max_timesteps", default=1e7, type=float)
+        td.add_argument("--expl_noise", default=0.1, type=float)
+        td.add_argument("--batch_size", default=64, type=int)
+        td.add_argument("--discount", default=0.99, type=float)
+        td.add_argument("--tau", default=0.005, type=float)
+        td.add_argument("--policy_noise", default=0.2, type=float)
+        td.add_argument("--noise_clip", default=0.5, type=float)
+        td.add_argument("--policy_freq", default=2, type=int)
+        td.add_argument("--a_lr", default=1e-4, type=float)
+        td.add_argument("--c_lr", default=1e-4, type=float)
+        td.add_argument("--num_procs", type=int, default=64)
+        td.add_argument("--max_traj_len", type=int, default=400)
+        td.add_argument("--param_noise", default=False, action="store_true")
+        _common_env_args(td)
+        _device_args(td)
+
+    for cmd in ("ddpg", "rdpg"):
+        dp = sub.add_parser(cmd, help=f"train with {cmd.upper()} (apex.py "
+                                      f"{cmd})")
+        dp.add_argument("--logdir", type=str,
+                        default=f"./trained_models/{cmd}/")
+        dp.add_argument("--seed", default=0, type=int)
+        dp.add_argument("--batch_size", default=64, type=int)
+        dp.add_argument("--discount", default=0.99, type=float)
+        dp.add_argument("--tau", default=0.001, type=float)
+        dp.add_argument("--a_lr", default=1e-4, type=float)
+        dp.add_argument("--c_lr", default=1e-3, type=float)
+        dp.add_argument("--expl_noise", default=0.2, type=float)
+        dp.add_argument("--max_timesteps", default=1e7, type=float)
+        dp.add_argument("--num_procs", type=int, default=64)
+        dp.add_argument("--max_traj_len", type=int, default=400)
+        _common_env_args(dp)
+        _device_args(dp)
+
+    ar = sub.add_parser("ars", help="train with ARS (apex.py ars)")
+    ar.add_argument("--logdir", type=str, default="./trained_models/ars/")
+    ar.add_argument("--seed", default=0, type=int)
+    ar.add_argument("--n_itr", type=int, default=1000)
+    ar.add_argument("--hidden_size", default=32, type=int)
+    ar.add_argument("--deltas", default=64, type=int)
+    ar.add_argument("--lr", default=0.01, type=float)
+    ar.add_argument("--std", default=0.0075, type=float)
+    ar.add_argument("--deltas_used", default=32, type=int)
+    ar.add_argument("--num_procs", type=int, default=4)
+    ar.add_argument("--max_traj_len", type=int, default=400)
+    ar.add_argument("--algo", default="v1", type=str)
+    ar.add_argument("--recurrent", action="store_true")
+    _common_env_args(ar)
+    _device_args(ar)
+
     ev = sub.add_parser("eval", help="deterministic evaluation of a run dir")
     ev.add_argument("--path", type=str, required=True,
                     help="run directory with experiment.pkl and "
@@ -89,29 +151,50 @@ def main(argv=None) -> int:
     _device_args(ev)
     args = parser.parse_args(argv)
 
-    if args.cmd == "ppo":
-        if args.recurrent:
-            raise NotImplementedError(
-                "--recurrent (RecurrentPPO) is not ported to apex_tpu_torch "
-                "yet")
-        if args.previous is not None:
-            raise NotImplementedError(
-                "--previous (curriculum continuation) is not ported to "
-                "apex_tpu_torch yet")
-        from apex_tpu_torch.agents.ppo import run_experiment
+    if args.cmd == "eval":
+        from apex_tpu_torch.runtime.evaluate import eval_checkpoint
 
-        # the run directory's name hashes the namespace and experiment.pkl
-        # stores it: keep them apex.py's, without the subcommand and device
-        device = args.device
-        del args.cmd, args.device
-        run_experiment(args, device=device)
+        eval_checkpoint(args.path, n_episodes=args.n_episodes,
+                        traj_len=args.traj_len, device=args.device,
+                        seed=args.seed, physics=args.physics)
         return 0
 
-    from apex_tpu_torch.runtime.evaluate import eval_checkpoint
+    if args.cmd == "ppo" and args.recurrent:
+        raise NotImplementedError(
+            "--recurrent (RecurrentPPO) is not ported to apex_tpu_torch yet")
+    if args.cmd == "ppo" and args.previous is not None:
+        raise NotImplementedError(
+            "--previous (curriculum continuation) is not ported to "
+            "apex_tpu_torch yet")
+    if args.cmd == "rdpg":
+        raise NotImplementedError(
+            "rdpg (recurrent DPG: EpisodeBuffer and the LSTM nets) is not "
+            "ported to apex_tpu_torch yet")
+    if args.cmd == "ars" and args.recurrent:
+        raise NotImplementedError(
+            "ars --recurrent (GaussianLSTMActor) is not ported to "
+            "apex_tpu_torch yet")
 
-    eval_checkpoint(args.path, n_episodes=args.n_episodes,
-                    traj_len=args.traj_len, device=args.device,
-                    seed=args.seed, physics=args.physics)
+    # the run directory's name hashes the namespace and experiment.pkl
+    # stores it: keep them apex.py's, without the subcommand and device
+    cmd, device = args.cmd, args.device
+    del args.cmd, args.device
+    if cmd == "ppo":
+        from apex_tpu_torch.agents.ppo import run_experiment
+
+        run_experiment(args, device=device)
+    elif cmd in ("td3_sync", "td3_async"):
+        from apex_tpu_torch.agents.td3 import run_experiment
+
+        run_experiment(args, async_mode=cmd == "td3_async", device=device)
+    elif cmd == "ddpg":
+        from apex_tpu_torch.agents.dpg import run_experiment
+
+        run_experiment(args, recurrent=False, device=device)
+    else:
+        from apex_tpu_torch.agents.ars import run_experiment
+
+        run_experiment(args, device=device)
     return 0
 
 

@@ -24,6 +24,7 @@ from apex_tpu_torch.agents.rollout import (
     Rollout,
     RunnerState,
     episode_stats,
+    evaluate_policy,
     init_runner,
     rollout_scan,
 )
@@ -38,11 +39,12 @@ METRICS = ("actor_loss", "entropy", "critic_loss", "ratio", "kl",
 
 class ClippedAdam:
     """`optax.chain(clip_by_global_norm(max_norm), adam(lr, eps=eps))`
-    (ppo.py:44-48), by optax's formulas:
+    (ppo.py:44-48) or, with max_grad_norm None, plain `optax.adam(lr,
+    eps=eps)` (td3.py:96-97, dpg.py:125-126), by optax's formulas:
 
     - g_norm = sqrt(sum of g^2 over all leaves); g is kept when g_norm <
       max_norm, else becomes (g / g_norm) * max_norm (no 1e-6, unlike
-      torch.nn.utils.clip_grad_norm_);
+      torch.nn.utils.clip_grad_norm_); no clip when max_norm is None;
     - mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, count += 1;
     - p += -lr * (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps).
 
@@ -52,7 +54,7 @@ class ClippedAdam:
     b1, b2 = 0.9, 0.999       # optax.adam's defaults
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
-                 max_grad_norm: float, eps: float):
+                 max_grad_norm: Optional[float], eps: float):
         self.params = list(params)
         self.lr, self.max_grad_norm, self.eps = lr, max_grad_norm, eps
         self.count = 0
@@ -61,14 +63,16 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = g_norm < self.max_grad_norm
+        if self.max_grad_norm is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = g_norm < self.max_grad_norm
+            grads = [torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
+                     for g in grads]
         self.count += 1
         f32 = np.float32
         bc1 = float(f32(1.0) - f32(self.b1) ** f32(self.count))
         bc2 = float(f32(1.0) - f32(self.b2) ** f32(self.count))
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g = torch.where(keep, g, (g / g_norm) * self.max_grad_norm)
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
             upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
@@ -338,19 +342,14 @@ class PPO:
             out[name] = epoch_metrics[:, i].mean()
         return out
 
-    @torch.no_grad()
     def _evaluate(self, state: PPOTrainState, generator: torch.Generator):
         """Deterministic eval (reference ppo.py:464): a fresh fleet for
         max_traj_len steps."""
         cfg = self.config
-
-        def policy_fn(obs):
-            return state.actor.act(state.norm, obs, deterministic=True)
-
-        runner = init_runner(self.env, generator, cfg.num_envs)
-        _, traj = rollout_scan(self.env, policy_fn, runner, generator,
-                               cfg.max_traj_len, cfg.max_traj_len)
-        return episode_stats(traj)
+        return evaluate_policy(
+            self.env, lambda obs: state.actor.act(state.norm, obs,
+                                                  deterministic=True),
+            generator, cfg.num_envs, cfg.max_traj_len)
 
     # ------------------------------------------------------------------
     # host-side driver

@@ -99,3 +99,16 @@ def episode_stats(traj: Rollout):
         "ep_len": torch.sum(traj.done_ep_len) / n_done,
         "reward_per_step": traj.reward.mean(),
     }
+
+
+@torch.no_grad()
+def evaluate_policy(env: Env, policy_fn: Callable[[torch.Tensor],
+                                                  torch.Tensor],
+                    generator: torch.Generator, num_envs: int,
+                    traj_len: int):
+    """Deterministic evaluation (reference ppo.py:464, sync_td3.py:23-44):
+    a fresh fleet of `num_envs` for `traj_len` steps; its episode stats."""
+    runner = init_runner(env, generator, num_envs)
+    _, traj = rollout_scan(env, policy_fn, runner, generator, traj_len,
+                           traj_len)
+    return episode_stats(traj)

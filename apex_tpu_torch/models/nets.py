@@ -1,17 +1,20 @@
-"""Actor, critic and observation normalizer as torch modules.
+"""Actors, critics and the observation normalizer as torch modules.
 
-Port of `NormState`, `GaussianFFActor` and `FFV` from
-`apex_tpu/models/nets.py` (reference rl/policies/actor.py:142-215,
-critic.py:37-77). The JAX nets keep (in, out) weights and compute
-x @ W + b; here they are `nn.Linear` layers with (out, in) weights, and
-`runtime/checkpoint.py` transposes when it loads JAX leaves. `init`
-builds a net with the JAX package's initialisers (normc, the mean head
-scaled by 0.01, zero biases), drawing from an explicit generator.
+Port of `NormState`, `GaussianFFActor`, `FFActor`, `LinearActor`, `FFV`,
+`FFQ` and `DualQCritic` from `apex_tpu/models/nets.py` (reference
+rl/policies/actor.py:22-215, critic.py:37-168). The JAX nets keep (in,
+out) weights and compute x @ W + b; here they are `nn.Linear` layers with
+(out, in) weights, and `runtime/checkpoint.py` transposes when it reads or
+writes JAX leaves. `init` builds a net with the JAX package's initialisers
+(normc, the mean head scaled by 0.01, zero biases; torch's default
+uniform for `DualQCritic`; zeros for `LinearActor`), drawing from an
+explicit generator on its device.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -57,6 +60,12 @@ def _mlp(sizes: Sequence[int]) -> nn.ModuleList:
     return nn.ModuleList(nn.Linear(a, b) for a, b in zip(sizes, sizes[1:]))
 
 
+def _relu_mlp(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    for layer in layers:
+        x = torch.relu(layer(x))
+    return x
+
+
 def normc_init(generator: torch.Generator, in_dim: int, out_dim: int,
                scale: float = 1.0) -> torch.Tensor:
     """normc (reference base.py:7-13, `apex_tpu.models.nets.normc_init`):
@@ -67,6 +76,16 @@ def normc_init(generator: torch.Generator, in_dim: int, out_dim: int,
                     device=generator.device)
     w = w / torch.sqrt(torch.sum(w * w, dim=0, keepdim=True))
     return w * scale
+
+
+@torch.no_grad()
+def _uniform_(layer: nn.Linear, generator: torch.Generator) -> None:
+    """torch.nn.Linear's default distribution, as the JAX package's
+    `_linear_init` draws it: weights and bias U(-k, k), k = 1/sqrt(in)."""
+    k = 1.0 / float(np.sqrt(np.float32(layer.in_features)))
+    for p in (layer.weight, layer.bias):
+        p.copy_(-k + 2.0 * k * torch.rand(p.shape, generator=generator,
+                                          device=generator.device))
 
 
 @torch.no_grad()
@@ -115,9 +134,7 @@ class GaussianFFActor(nn.Module):
     def dist(self, norm: NormState, obs: torch.Tensor, anneal: float = 1.0
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, std) of the policy distribution (actor.py:180-197)."""
-        x = norm(obs)
-        for layer in self.layers:
-            x = torch.relu(layer(x))
+        x = _relu_mlp(self.layers, norm(obs))
         mean = self.mean(x)
         if self.bounded:
             mean = torch.tanh(mean)
@@ -155,7 +172,146 @@ class FFV(nn.Module):
         return critic
 
     def value(self, norm: NormState, obs: torch.Tensor) -> torch.Tensor:
-        x = norm(obs)
-        for layer in self.layers:
-            x = torch.relu(layer(x))
-        return self.out(x)
+        return self.out(_relu_mlp(self.layers, norm(obs)))
+
+
+class FFActor(nn.Module):
+    """Deterministic actor of TD3 and DDPG (reference FF_Actor,
+    actor.py:43-71): relu MLP, max_action * tanh of a linear head."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 layers: Sequence[int] = (256, 256), max_action: float = 1.0):
+        super().__init__()
+        self.layers = _mlp((obs_dim, *layers))
+        self.out = nn.Linear(layers[-1], action_dim)
+        self.max_action = max_action
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             layers: Sequence[int] = (256, 256),
+             max_action: float = 1.0) -> "FFActor":
+        """`FFActor.init` (nets.py:194-202): normc everywhere, zero
+        biases."""
+        actor = cls(obs_dim, action_dim, layers, max_action).to(
+            generator.device)
+        for layer in (*actor.layers, actor.out):
+            _normc_(layer, generator)
+        return actor
+
+    def act(self, norm: NormState, obs: torch.Tensor) -> torch.Tensor:
+        x = _relu_mlp(self.layers, norm(obs))
+        return torch.tanh(self.out(x)) * self.max_action
+
+
+class LinearActor(nn.Module):
+    """ARS's policy (reference Linear_Actor, actor.py:22-41): two affine
+    layers, no nonlinearity, zero-initialised."""
+
+    def __init__(self, obs_dim: int, action_dim: int, hidden_size: int = 32):
+        super().__init__()
+        self.l1 = nn.Linear(obs_dim, hidden_size)
+        self.l2 = nn.Linear(hidden_size, action_dim)
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             hidden_size: int = 32) -> "LinearActor":
+        """`LinearActor.init` (nets.py:220-226): every parameter zero; the
+        generator gives the device and draws nothing."""
+        actor = cls(obs_dim, action_dim, hidden_size).to(generator.device)
+        with torch.no_grad():
+            for p in actor.parameters():
+                p.zero_()
+        return actor
+
+    def act(self, norm: NormState, obs: torch.Tensor) -> torch.Tensor:
+        return self.l2(self.l1(norm(obs)))
+
+    @staticmethod
+    def flat_size(obs_dim: int, action_dim: int, hidden_size: int) -> int:
+        return (hidden_size * (obs_dim + 1)
+                + action_dim * (hidden_size + 1))
+
+    @staticmethod
+    def act_flat(thetas: torch.Tensor, norm: NormState, obs: torch.Tensor,
+                 hidden_size: int) -> torch.Tensor:
+        """A fleet of linear actors, one per row: thetas (n, D) in
+        `ravel_pytree`'s order of the JAX params (l1.b, l1.w (in, out),
+        l2.b, l2.w (in, out)), obs (n, obs_dim) -> actions (n, act)."""
+        n, obs_dim = obs.shape
+        h = hidden_size
+        act_dim = (thetas.shape[1] - h * (obs_dim + 1)) // (h + 1)
+        sizes = (h, obs_dim * h, act_dim, h * act_dim)
+        b1, w1, b2, w2 = torch.split(thetas, sizes, dim=1)
+        x = torch.bmm(norm(obs)[:, None, :], w1.reshape(n, obs_dim, h))
+        x = x + b1[:, None, :]
+        return (torch.bmm(x, w2.reshape(n, h, act_dim)) + b2[:, None, :]
+                )[:, 0]
+
+
+class FFQ(nn.Module):
+    """Q(s, a) of DDPG (reference FF_Q, critic.py:80-116): relu MLP over
+    [normalised obs, action], linear head."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 layers: Sequence[int] = (256, 256)):
+        super().__init__()
+        self.layers = _mlp((obs_dim + action_dim, *layers))
+        self.out = nn.Linear(layers[-1], 1)
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             layers: Sequence[int] = (256, 256)) -> "FFQ":
+        """`FFQ.init` (nets.py:261-267): normc everywhere, zero biases."""
+        critic = cls(obs_dim, action_dim, layers).to(generator.device)
+        for layer in (*critic.layers, critic.out):
+            _normc_(layer, generator)
+        return critic
+
+    def q(self, norm: NormState, obs: torch.Tensor,
+          action: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([norm(obs), action], dim=-1)
+        return self.out(_relu_mlp(self.layers, x))
+
+
+class _QBranch(nn.Module):
+    def __init__(self, sizes: Sequence[int]):
+        super().__init__()
+        self.layers = _mlp(sizes)
+        self.out = nn.Linear(sizes[-1], 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(_relu_mlp(self.layers, x))
+
+
+class DualQCritic(nn.Module):
+    """TD3's twin Q networks (reference Dual_Q_Critic, critic.py:118-168):
+    two relu MLPs over [normalised obs, action]."""
+
+    def __init__(self, obs_dim: int, action_dim: int, hidden_size: int = 256,
+                 hidden_layers: int = 2):
+        super().__init__()
+        sizes = (obs_dim + action_dim,) + (hidden_size,) * hidden_layers
+        self.branches = nn.ModuleList([_QBranch(sizes), _QBranch(sizes)])
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             hidden_size: int = 256, hidden_layers: int = 2
+             ) -> "DualQCritic":
+        """`DualQCritic.init` (nets.py:279-293): torch's default uniform
+        init, not normc."""
+        critic = cls(obs_dim, action_dim, hidden_size, hidden_layers).to(
+            generator.device)
+        for branch in critic.branches:
+            for layer in (*branch.layers, branch.out):
+                _uniform_(layer, generator)
+        return critic
+
+    def q(self, norm: NormState, obs: torch.Tensor, action: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = torch.cat([norm(obs), action], dim=-1)
+        return self.branches[0](x), self.branches[1](x)
+
+    def q1(self, norm: NormState, obs: torch.Tensor,
+           action: torch.Tensor) -> torch.Tensor:
+        """Q1 alone, for the actor loss (critic.py:154-168)."""
+        return self.branches[0](torch.cat([norm(obs), action], dim=-1))

@@ -13,8 +13,10 @@ leading leaves are, with weights stored (in, out):
 
 followed by the optimizer states, the rollout runner and the rng, which
 evaluation does not need. Reading the file needs numpy only.
-`save_checkpoint` writes the same list from the port's PPO train state,
-so that a run directory of the port loads in the JAX package too.
+`save_checkpoint` writes the same list from the port's PPO, TD3, DDPG and
+ARS train states (the JAX `PPOTrainState`, `TD3TrainState`,
+`DPGTrainState` and `ARSTrainState` in their field order), so that a run
+directory of the port loads in the JAX package too.
 """
 from __future__ import annotations
 
@@ -69,14 +71,21 @@ def from_jax_leaves(leaves: Sequence[np.ndarray],
 
 def _jax_params(net) -> list:
     """(param tensor, stored transposed) pairs in the JAX flattening order
-    of a GaussianFFActor or FFV: per dense layer (b, w (in, out)), dict
-    keys sorted (layers, log_std, mean | layers, out)."""
-    if hasattr(net, "out"):
-        heads = [net.out]
+    of a net of `models/nets.py`: per dense layer (b, w (in, out)), dict
+    keys sorted (GaussianFFActor: layers, log_std, mean; FFActor, FFV,
+    FFQ: layers, out; DualQCritic: q1, q2, each layers, out; LinearActor:
+    l1, l2)."""
+    if hasattr(net, "branches"):
+        return [x for branch in net.branches for x in _jax_params(branch)]
+    if hasattr(net, "l1"):
+        layers = (net.l1, net.l2)
+    elif hasattr(net, "out"):
+        layers = (*net.layers, net.out)
     else:
-        heads = ([net.log_std] if net.log_std is not None else []) \
-            + [net.mean]
-    return [x for layer in (*net.layers, *heads)
+        layers = (*net.layers,
+                  *([net.log_std] if net.log_std is not None else []),
+                  net.mean)
+    return [x for layer in layers
             for x in ((layer.bias, False), (layer.weight, True))]
 
 
@@ -85,39 +94,92 @@ def _np(x: torch.Tensor, transpose: bool = False) -> np.ndarray:
     return np.array(a.T if transpose else a, order="C")
 
 
-def _opt_leaves(opt, net) -> list:
-    """optax's inject_hyperparams(clip + adam) state: count, hyperparams
-    (eps, learning_rate, max_grad_norm), adam count, mu tree, nu tree."""
+def _adam_leaves(opt, net) -> list:
+    """optax.adam's state (ScaleByAdamState(count, mu, nu), then the
+    learning-rate scale's empty state): count, mu tree, nu tree."""
     index = {id(p): i for i, p in enumerate(opt.params)}
     order = [(index[id(p)], t) for p, t in _jax_params(net)]
-    count = np.asarray(opt.count, np.int32)
-    return ([count] + [np.asarray(v, np.float32) for v in
-                       (opt.eps, opt.lr, opt.max_grad_norm)]
-            + [count.copy()] + [_np(opt.mu[i], t) for i, t in order]
+    return ([np.asarray(opt.count, np.int32)]
+            + [_np(opt.mu[i], t) for i, t in order]
             + [_np(opt.nu[i], t) for i, t in order])
 
 
+def _opt_leaves(opt, net) -> list:
+    """optax's inject_hyperparams(clip + adam) state: count, hyperparams
+    (eps, learning_rate, max_grad_norm), then the adam state."""
+    return ([np.asarray(opt.count, np.int32)]
+            + [np.asarray(v, np.float32) for v in
+               (opt.eps, opt.lr, opt.max_grad_norm)]
+            + _adam_leaves(opt, net))
+
+
+def _net(net) -> list:
+    return [_np(p, t) for p, t in _jax_params(net)]
+
+
+def _norm(norm) -> list:
+    return [_np(norm.mean), _np(norm.var), _np(norm.count)]
+
+
+def _key(seed: int) -> np.ndarray:
+    """The rng leaves hold the key PRNGKey(seed) of the run's seed."""
+    return np.asarray([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def _runner(runner, env, seed: int) -> list:
+    return (env.checkpoint_leaves(runner.env_state, runner.obs)
+            + [_np(runner.obs), _np(runner.traj_len), _np(runner.ep_return),
+               _key(seed)])
+
+
+def _replay(replay) -> list:
+    return ([_np(getattr(replay, f)) for f in replay.FIELDS]
+            + [np.asarray(replay.ptr, np.int32),
+               np.asarray(replay.size, np.int32)])
+
+
 def to_jax_leaves(state, env) -> list:
-    """The leaf list of the JAX PPOTrainState for the port's train state
-    (field order actor, critic, norm, actor_opt, critic_opt, runner, rng).
-    The rng leaves hold the key PRNGKey(seed) of the run's seed."""
-    key = np.asarray([0, state.seed & 0xFFFFFFFF], np.uint32)
-    runner = state.runner
-    return ([_np(p, t) for p, t in _jax_params(state.actor)]
-            + [_np(p, t) for p, t in _jax_params(state.critic)]
-            + [_np(state.norm.mean), _np(state.norm.var),
-               _np(state.norm.count)]
+    """The leaf list of the JAX train state for the port's train state of
+    PPO (fields actor, critic, norm, actor_opt, critic_opt, runner, rng),
+    TD3 (actor, actor_target, behavior, critic, critic_target, norm,
+    actor_opt, critic_opt, replay, runner, rng, update_count,
+    param_noise_sigma), DDPG (actor, actor_target, critic, critic_target,
+    norm, actor_opt, critic_opt, replay, runner, rng) or ARS (theta, norm,
+    rng, total_steps)."""
+    from apex_tpu_torch.agents.ars import ARSTrainState
+    from apex_tpu_torch.agents.dpg import DPGTrainState
+    from apex_tpu_torch.agents.td3 import TD3TrainState
+
+    key = _key(state.seed)
+    if isinstance(state, ARSTrainState):
+        return ([_np(state.theta)] + _norm(state.norm)
+                + [key, np.asarray(state.total_steps, np.int32)])
+    if isinstance(state, (TD3TrainState, DPGTrainState)):
+        td3 = isinstance(state, TD3TrainState)
+        actors = (state.actor, state.actor_target) + (
+            (state.behavior,) if td3 else ())
+        out = ([x for net in (*actors, state.critic, state.critic_target)
+                for x in _net(net)]
+               + _norm(state.norm)
+               + _adam_leaves(state.actor_opt, state.actor)
+               + _adam_leaves(state.critic_opt, state.critic)
+               + _replay(state.replay)
+               + _runner(state.runner, env, state.seed) + [key.copy()])
+        if td3:
+            out += [np.asarray(state.update_count, np.int32),
+                    _np(state.param_noise_sigma)]
+        return out
+    return (_net(state.actor) + _net(state.critic) + _norm(state.norm)
             + _opt_leaves(state.actor_opt, state.actor)
             + _opt_leaves(state.critic_opt, state.critic)
-            + env.checkpoint_leaves(runner.env_state, runner.obs)
-            + [_np(runner.obs), _np(runner.traj_len), _np(runner.ep_return),
-               key, key.copy()])
+            + _runner(state.runner, env, state.seed) + [key.copy()])
 
 
 def save_checkpoint(path: str, state, env,
                     name: str = "checkpoint.pkl") -> str:
-    """Write the JAX leaf list of a PPO train state to <path>/<name>
-    (`apex_tpu.runtime.checkpoint.save_checkpoint`'s format)."""
+    """Write the JAX leaf list of a PPO, TD3, DDPG or ARS train state to
+    <path>/<name> (`apex_tpu.runtime.checkpoint.save_checkpoint`'s
+    format)."""
     os.makedirs(path, exist_ok=True)
     full = os.path.join(path, name)
     tmp = full + ".tmp"

@@ -8,7 +8,9 @@ the fleet tier at reduced depth, the evaluations of the two terrain
 checkpoints through K1's heightfield branch (`curves/cassie_mk5c_ckpt`:
 noise terrain, 5k_speed_reward, dyn-rand off, 60 substeps;
 `curves/cassie_mk4_terrain_ckpt`: mk4_hardened on noise terrain), and two
-PPO iterations of `python -m apex_tpu_torch ppo` at the training fleet --
+PPO iterations of `python -m apex_tpu_torch ppo` at the training fleet, and
+Walker2d through the fleet tier (K2 + K3) under PPO, TD3, DDPG and ARS and
+TD3 on Cassie through K1 --
 after building the hand-written CUDA kernels from `apex_tpu_torch/csrc/`
 and holding each against its plain PyTorch version on the card. Phases,
 each printed with its seconds as it ends:
@@ -49,6 +51,23 @@ each printed with its seconds as it ends:
              CUDA launches per substep from torch.profiler
   train      `python -m apex_tpu_torch ppo` in-process, 2 iterations of
              32,768 env steps at 1024 envs; the run directory loads back
+  walker_fleet
+             Walker2d on the fleet tier at 2048 envs: K2 on its model and
+             K3 on its M + hD against their plain versions (timed, with
+             torch.linalg.inv beside K3), and the whole substep (K2 + K3)
+             against the same step with the plain versions on the card
+  walker2d_ppo
+             bench.py's Walker2d PPO cell (2048 envs, 32 steps, minibatch
+             4096), two iterations of rollout, update and 300-step eval,
+             counted (a reset launches nothing; an env step 4 K2, 4 K3);
+             then a learning check: 32 envs, 12 iterations, the eval
+             return must rise by more than 50
+  td3        bench.py's TD3 cell (async, 64 envs, Walker2d, the 1M ring):
+             a warm-up and three policy iterations, counted; updates/s
+  td3_cassie `python -m apex_tpu_torch td3_sync` on Cassie-v0 (K1), two
+             iterations and an eval, counted; run dir name and checkpoint
+  ddpg, ars  `python -m apex_tpu_torch ddpg` and `ars` on Walker2d at the
+             CLI's defaults, one iteration each, counted
 
 The line before the last holds the kernels' JSON record, the card's name
 and power limit precede it, and the last line is the JSON verdict. Any
@@ -56,15 +75,22 @@ failure raises: the script exits non-zero and prints no verdict.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from apex_tpu_torch.agents.ppo import PPO, PPOConfig
+from apex_tpu_torch.agents.td3 import TD3, TD3Config, copy_params
 from apex_tpu_torch.envs.cassie import CassieEnv
+from apex_tpu_torch.envs.walker2d import Walker2dEnv, walker_model
 from apex_tpu_torch.ops import cuda_build, pallas_linalg
 from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import (
@@ -76,6 +102,7 @@ from apex_tpu_torch.physics.cassie_sim import (
 )
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.runtime.evaluate import eval_checkpoint, load_experiment
+from apex_tpu_torch.runtime.log import args_hash
 from apex_tpu_torch.utils.terrain import terrain_bank
 
 CKPT = "curves/cassie_mk4_hardened_ckpt"
@@ -853,8 +880,6 @@ def eval_seeds(name, ckpt, simrate, hfield):
 def step_1024(dev):
     """ms per policy step of the 1024-env fleet on the megakernel tier, and
     launches and device busy time of one profiled step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from apex_tpu_torch.agents.rollout import init_runner, rollout_scan
 
     exp = load_experiment(CKPT, device="cuda")
@@ -878,10 +903,26 @@ def step_1024(dev):
                 tuple(runner.obs.shape) != (FLEET, env.observation_size):
             raise AssertionError("fleet-1024 rollout gave non-finite rewards "
                                  "or a wrong observation shape")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            rollout_scan(env, policy_fn, runner, gen_dev, 1, TRAJ_LEN)
-            torch.cuda.synchronize()
+        busy_ms, kernels, launch_calls = profile_launches(
+            lambda: rollout_scan(env, policy_fn, runner, gen_dev, 1,
+                                 TRAJ_LEN))
+    return dict(ms_per_policy_step=f"{step_ms:.2f}",
+                device_kernels_per_policy_step=kernels,
+                launch_calls_per_policy_step=launch_calls,
+                launches_per_substep=f"{launch_calls / SIMRATE:.1f}",
+                device_busy_ms_per_policy_step=f"{busy_ms:.2f}",
+                device_idle_share=f"{1.0 - busy_ms / step_ms:.4f}")
+
+
+def profile_launches(fn):
+    """One call of fn() under torch.profiler: (device busy ms, kernels on
+    the card, launch calls from the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     events = prof.events()
     on_card = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -889,12 +930,7 @@ def step_1024(dev):
     launch_calls = sum(1 for e in events if e.name in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
         "cuLaunchKernelEx"))
-    return dict(ms_per_policy_step=f"{step_ms:.2f}",
-                device_kernels_per_policy_step=len(on_card),
-                launch_calls_per_policy_step=launch_calls,
-                launches_per_substep=f"{launch_calls / SIMRATE:.1f}",
-                device_busy_ms_per_policy_step=f"{busy_ms:.2f}",
-                device_idle_share=f"{1.0 - busy_ms / step_ms:.4f}")
+    return busy_ms, len(on_card), launch_calls
 
 
 # the training run: the mk4_hardened settings (experiment.pkl), 2
@@ -958,6 +994,431 @@ def train(dev):
         actor_loss=[f"{x:.5f}" for x in scalars["Misc/Actor Loss"]],
         mirror_loss=[f"{x:.6f}" for x in scalars["Misc/Mirror Loss"]],
         reloaded_return=f"{ret:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# Walker2d on the fleet tier (K2 + K3) and the learners beyond PPO
+# ---------------------------------------------------------------------------
+
+# bench.py's Walker2d PPO cell (bench.py:94-103) and the learning check of
+# tests/test_learning_smoke.py:16-31
+WALKER_FLEET, WALKER_STEPS, WALKER_TRAJ, WALKER_MB = 2048, 32, 300, 4096
+WALKER_ITR = 2
+WALKER_SUBSTEPS = Walker2dEnv.frame_skip
+LEARN_ENVS, LEARN_ITR, LEARN_RISE = 32, 12, 50.0
+# bench.py's TD3 cell (bench.py:106-121): async, 64 envs, the 1M ring
+TD3_ITR = 3
+# leaves of the JAX package's TD3TrainState on Cassie-v0 (pinned on the CPU
+# against a JAX template by tests/test_torch_offpolicy.py)
+TD3_CASSIE_LEAVES = 131
+# apex.py's td3 namespace (apex.py:120-138 and _common_env_args)
+TD3_KEYS = (
+    "a_lr", "batch_size", "c_lr", "command_profile", "discount",
+    "dyn_random", "env_name", "estimator", "eval_freq", "expl_noise",
+    "history", "ik_baseline", "input_profile", "learn_gains", "logdir",
+    "max_speed", "max_timesteps", "max_traj_len", "min_speed", "mirror",
+    "no_delta", "noise_clip", "num_procs", "orient_jump_prob", "param_noise",
+    "policy_freq", "policy_noise", "reward", "seed", "simrate",
+    "speed_phase_add", "start_timesteps", "tau", "traj")
+
+
+def walker_inputs(B: int, gen: torch.Generator):
+    """A Walker2d fleet around qpos0 on the CPU: angles and slides
+    N(0, 0.05^2), velocities N(0, 0.5^2), the odd envs lowered 6 cm so
+    that their feet start in the floor, controls N(0, 0.5^2) (some beyond
+    the actuators' clamp)."""
+    m = walker_model()
+    qpos = torch.tensor(m.qpos0, dtype=torch.float32)[:, None] \
+        + 0.05 * torch.randn(m.nq, B, generator=gen)
+    qpos[1, 1::2] -= 0.06
+    qvel = 0.5 * torch.randn(m.nv, B, generator=gen)
+    ctrl = 0.5 * torch.randn(m.nu, B, generator=gen)
+    return qpos.contiguous(), qvel, ctrl
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The fleet step with K2's and K3's plain versions in place of the
+    kernels, on any device."""
+    saved = fleet.fleet_fk, fleet.spd_inverse_bt
+    fleet.fleet_fk = fleet_fk.fk_plain
+    fleet.spd_inverse_bt = pallas_linalg.spd_inverse_bt_plain
+    try:
+        yield
+    finally:
+        fleet.fleet_fk, fleet.spd_inverse_bt = saved
+
+
+def walker_step_vs_plain(m, params, qpos, qvel, ctrl):
+    """One Walker2d fleet substep through K2 and K3 against the same step
+    with their plain versions, both on the card, at the JAX package's
+    per-step tolerances between its physics tiers
+    (tests/test_fleet_parity.py:39-69). Returns the largest difference
+    of each output and the largest contact force."""
+    got = fleet.fleet_step(m, params, qpos, qvel, ctrl)
+    with plain_kernels():
+        ref = fleet.fleet_step(m, params, qpos, qvel, ctrl)
+    torch.cuda.synchronize()
+    pairs = {"xpos": (got[0].kin.xpos, ref[0].kin.xpos, 1e-4, 1e-5),
+             "qpos": (got[2], ref[2], 1e-4, 2e-5),
+             "qvel": (got[3], ref[3], 5e-2, 2e-2),
+             "qacc": (got[4], ref[4], 1e-1, 50.0),
+             "force": (got[1].force, ref[1].force, 5e-2, 1.0),
+             "depth": (got[1].depth, ref[1].depth, 1e-4, 1e-6),
+             "torque": (got[5], ref[5], 1e-5, 1e-6)}
+    out = {}
+    for name, (a, b, rtol, atol) in pairs.items():
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"Walker2d step: non-finite {name}")
+        torch.testing.assert_close(
+            a, b, rtol=rtol, atol=atol,
+            msg=lambda t: f"Walker2d step {name} vs plain: {t}")
+        out[name] = float((a - b).abs().max())
+    force = float(ref[1].force[:, 2].max())
+    if not force > 0:
+        raise AssertionError("Walker2d step: no contact force in the fleet")
+    return out, force
+
+
+def check_walker_fleet(dev):
+    """K2 on Walker2d's model at B = 2048 against its plain version (the
+    tolerance of `check_k2`), K3 on the fleet's own M + hD (n = 9) against
+    its plain version, and the whole fleet substep (K2 + K3) against the
+    same step with the plain versions, all on the card; timed."""
+    m = walker_model()
+    B = WALKER_FLEET
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    qpos, qvel, ctrl = walker_inputs(B, gen)
+    qpos, qvel, ctrl = qpos.to(dev), qvel.to(dev), ctrl.to(dev)
+    params = PhysParams.from_model(m, B, dev)
+    ipos = params.body_ipos
+
+    got = fleet_fk.fleet_fk(m, ipos, qpos)
+    ref = fleet_fk.fk_plain(m, ipos, qpos)
+    torch.cuda.synchronize()
+    for name, a, b in zip(got._fields, got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                   msg=lambda t: f"K2 Walker2d {name}: {t}")
+    k2_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    rows = m.nq + 3 * m.nbody + (3 + 9 + 3) * m.nbody + 6 * m.nv
+    k2_bnd, k2_by, k2_why = bound_ms(rows * B * 4, fk_flops_per_env(m) * B)
+    k2 = dict(max_abs_err=k2_err,
+              ms=device_ms(lambda: fleet_fk.fleet_fk(m, ipos, qpos), 100,
+                           "fleet_fk_kernel"),
+              plain_ms=cuda_ms(lambda: fleet_fk.fk_plain(m, ipos, qpos), 3, 1),
+              bound_ms=k2_bnd, bound_by=k2_by, library_ms=None)
+
+    # K3 on the fleet's M + hD; the condition number (~1.3e3) times f32's
+    # epsilon bounds the relative error of each inverse at ~1e-4
+    dyn = fleet._dynamics_bt(m, params, qpos, qvel)
+    A = dyn.M.clone()
+    A.diagonal(dim1=0, dim2=1).add_(m.timestep * params.dof_damping.T)
+    A = A.contiguous()
+    inv = pallas_linalg.spd_inverse_bt(A)
+    inv_plain = pallas_linalg.spd_inverse_bt_plain(A)
+    torch.cuda.synchronize()
+    scale = inv_plain.abs().max().item()
+    k3_err = (inv - inv_plain).abs().max().item()
+    if not (np.isfinite(k3_err) and k3_err <= 1e-4 * scale):
+        raise AssertionError(f"K3 Walker2d M+hD: max err {k3_err:.3e} > "
+                             f"1e-4 x max|A^-1| {scale:.3e}")
+    Abf = A.permute(2, 0, 1).contiguous()
+    k3_bnd, k3_by, k3_why = bound_ms(2 * A.numel() * 4, m.nv ** 3 * B)
+    k3 = dict(max_abs_err=k3_err,
+              ms=device_ms(lambda: pallas_linalg.spd_inverse_bt(A), 100,
+                           "spd_inverse_kernel"),
+              plain_ms=cuda_ms(
+                  lambda: pallas_linalg.spd_inverse_bt_plain(A), 3, 1),
+              bound_ms=k3_bnd, bound_by=k3_by,
+              library_ms=device_ms(lambda: torch.linalg.inv(Abf), 50))
+
+    step_err, force = walker_step_vs_plain(m, params, qpos, qvel, ctrl)
+    _, _, n = count_launches(lambda: fleet.fleet_step(m, params, qpos, qvel,
+                                                      ctrl))
+    check_counts("Walker2d fleet step", n,
+                 {"K1": 0, "K2": 1, "K3": 1, "K1-hfield": 0})
+    step_ms = cuda_ms(lambda: fleet.fleet_step(m, params, qpos, qvel, ctrl),
+                      10)
+    with plain_kernels():
+        plain_step_ms = cuda_ms(
+            lambda: fleet.fleet_step(m, params, qpos, qvel, ctrl), 10)
+    # one env step (4 substeps) of the 2048-env fleet, host clock and
+    # profiled
+    env = Walker2dEnv(device=dev)
+    wstate, _ = env.reset(env.sample_reset_noise(
+        torch.Generator(device=dev).manual_seed(0), B))
+    act = 0.5 * torch.randn(B, env.action_size, generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    env_step = lambda: env.step(wstate, act, None)
+    env_step()
+    env_step_ms = cuda_ms(env_step, 5, 0)
+    busy_ms, kernels, launch_calls = profile_launches(env_step)
+    print(f"  Walker2d env step B={B}: {env_step_ms:.2f} ms (host clock, "
+          f"events), {launch_calls} launch calls "
+          f"({launch_calls / WALKER_SUBSTEPS:.1f} per substep), {kernels} "
+          f"kernels, device busy {busy_ms:.3f} ms, idle share "
+          f"{1.0 - busy_ms / env_step_ms:.4f}", flush=True)
+
+    print(f"  K2 Walker2d B={B}: max err {k2_err:.3e}; kernel "
+          f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.3f} ms, bound "
+          f"{k2_bnd * 1e3:.3f} us ({k2_by}: {k2_why}); "
+          f"{fleet_fk.launch_info(m)}", flush=True)
+    print(f"  K3 Walker2d M+hD n={m.nv} B={B}: err {k3_err:.3e} "
+          f"({k3_err / scale:.2e} of max); kernel {k3['ms']:.4f} ms, plain "
+          f"{k3['plain_ms']:.3f} ms, torch.linalg.inv "
+          f"{k3['library_ms']:.4f} ms, bound {k3_bnd * 1e3:.3f} us ({k3_by}: "
+          f"{k3_why})", flush=True)
+    print("  Walker2d substep (K2 + K3) vs the plain versions on the card: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in step_err.items())
+          + f"; max contact force {force:.1f} N; {step_ms:.3f} ms per "
+          f"substep with the kernels, {plain_step_ms:.3f} ms with the plain "
+          "versions (host clock, events)", flush=True)
+    return dict(K2=k2, K3=k3, summary=dict(
+        substep_ms=f"{step_ms:.3f}", plain_substep_ms=f"{plain_step_ms:.3f}",
+        env_step_ms=f"{env_step_ms:.2f}", launch_calls_per_env_step=launch_calls,
+        device_busy_ms_per_env_step=f"{busy_ms:.3f}",
+        device_idle_share=f"{1.0 - busy_ms / env_step_ms:.4f}"))
+
+
+def walker2d_ppo(dev):
+    """bench.py's Walker2d PPO cell (2048 envs, 32 steps per env, minibatch
+    4096, 3 epochs, traj 300) for two iterations, each a rollout, the
+    update and the 300-step evaluation, counted: a reset launches
+    nothing, an env step 4 K2 and 4 K3. Then the learning check of
+    tests/test_learning_smoke.py:16-31 (32 envs, 12 iterations, lr 3e-4,
+    500 burn-in steps): the deterministic eval return must rise by more
+    than 50."""
+    env = Walker2dEnv(device=dev)
+    cfg = PPOConfig(num_envs=WALKER_FLEET,
+                    num_steps=WALKER_FLEET * WALKER_STEPS,
+                    max_traj_len=WALKER_TRAJ, minibatch_size=WALKER_MB,
+                    epochs=3)
+    ppo = PPO(env, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, n = count_launches(lambda: ppo.init(seed=0))
+    check_counts("Walker2d reset", n,
+                 {"K1": 0, "K2": 0, "K3": 0, "K1-hfield": 0})
+    per_step = WALKER_SUBSTEPS
+    want = {"K1": 0, "K1-hfield": 0,
+            "K2": per_step * (WALKER_STEPS + WALKER_TRAJ),
+            "K3": per_step * (WALKER_STEPS + WALKER_TRAJ)}
+    out = dict(rollout_s=[], update_s=[], eval_s=[], env_steps_per_s=[],
+               train_return=[], eval_return=[], kl=[])
+    for itr in range(WALKER_ITR):
+        def iteration():
+            t0 = time.time()
+            st, traj = ppo._rollout(state, 1.0)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            perms = [torch.randperm(traj.reward.numel(), generator=st.generator,
+                                    device=dev) for _ in range(cfg.epochs)]
+            metrics = {k: float(v) for k, v in
+                       ppo._update(st, traj, 1.0, perms).items()}
+            torch.cuda.synchronize()
+            t2 = time.time()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(itr)
+            ev = float(ppo._evaluate(st, gen)["ep_return"])
+            torch.cuda.synchronize()
+            return st, metrics, ev, (t1 - t0, t2 - t1, time.time() - t2)
+
+        (state, metrics, ev, (t_roll, t_upd, t_ev)), _, n = count_launches(
+            iteration)
+        check_counts(f"walker2d_ppo iteration {itr}", n, want)
+        for k, v in metrics.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"walker2d_ppo: {k} = {v}")
+        out["rollout_s"].append(f"{t_roll:.3f}")
+        out["update_s"].append(f"{t_upd:.3f}")
+        out["eval_s"].append(f"{t_ev:.3f}")
+        out["env_steps_per_s"].append(
+            f"{WALKER_FLEET * WALKER_STEPS / (t_roll + t_upd):.0f}")
+        out["train_return"].append(f"{metrics['train_ep_return']:.3f}")
+        out["eval_return"].append(f"{ev:.3f}")
+        out["kl"].append(f"{metrics['kl']:.5f}")
+    out["k2_launches_per_itr"] = n["K2"]
+    out["k3_launches_per_itr"] = n["K3"]
+    out["peak_mem_mb"] = f"{torch.cuda.max_memory_allocated() / 1e6:.1f}"
+    out["launches"] = n
+
+    # the learning check
+    t0 = time.time()
+    env = Walker2dEnv(device=dev)
+    cfg = PPOConfig(num_envs=LEARN_ENVS, num_steps=LEARN_ENVS * 64,
+                    max_traj_len=200, minibatch_size=512, epochs=3, lr=3e-4)
+    ppo = PPO(env, cfg)
+    state = ppo.prenormalize(ppo.init(seed=0), steps=500)
+
+    def evaluate():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        return float(ppo._evaluate(state, gen)["ep_return"])
+
+    ev0 = evaluate()
+    for _ in range(LEARN_ITR):
+        state, _ = ppo._train_iteration(state, 1.0)
+    ev1 = evaluate()
+    print(f"  walker2d learning check: deterministic eval return "
+          f"{ev0:.3f} -> {ev1:.3f} in {LEARN_ITR} iterations of "
+          f"{LEARN_ENVS} envs ({time.time() - t0:.1f} s)", flush=True)
+    if not ev1 > ev0 + LEARN_RISE:
+        raise AssertionError(f"walker2d PPO did not learn: eval return "
+                             f"{ev0:.3f} -> {ev1:.3f}")
+    out["learning_eval_return"] = f"{ev0:.3f} -> {ev1:.3f}"
+    return out
+
+
+def td3_walker(dev):
+    """bench.py's TD3 cell: `TD3Config(num_envs=64, async_mode=True)` on
+    Walker2d with the 1M ring, one random warm-up iteration and three
+    policy iterations, each counted (80 env steps: 320 K2 and 320 K3);
+    learner updates/s as bench.py counts them (iterations x 80 over the
+    seconds of the policy iterations, collection included), and 80 updates
+    timed alone."""
+    env = Walker2dEnv(device=dev)
+    cfg = TD3Config(num_envs=64, async_mode=True)
+    agent = TD3(env, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = agent.init(seed=0)
+    ring_mb = sum(getattr(state.replay, f).numel() * 4
+                  for f in state.replay.FIELDS) / 1e6
+    want = {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * cfg.collect_steps,
+            "K3": WALKER_SUBSTEPS * cfg.collect_steps}
+    secs = []
+    for it in range(1 + TD3_ITR):
+        copy_params(state.behavior, state.actor)   # load_freq 1
+        (state, metrics), dt, n = count_launches(
+            lambda: agent._train_iteration(state, random_actions=it == 0))
+        check_counts(f"td3 iteration {it}", n, want)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        for k in ("critic_loss", "actor_loss"):
+            if not np.isfinite(metrics[k]):
+                raise AssertionError(f"td3 iteration {it}: {k} = "
+                                     f"{metrics[k]}")
+        secs.append(dt)
+    size = state.replay.size
+    if size != (1 + TD3_ITR) * cfg.collect_steps * cfg.num_envs:
+        raise AssertionError(f"td3: replay size {size}")
+
+    def updates():
+        for _ in range(cfg.updates_per_iter):
+            batch = state.replay.sample(state.generator, cfg.batch_size)
+            noise = torch.randn(batch[1].shape, generator=state.generator,
+                                device=dev)
+            agent._update(state, batch, noise)
+
+    _, upd_s, n = count_launches(updates)
+    check_counts("td3 updates", n, {"K1": 0, "K1-hfield": 0, "K2": 0,
+                                    "K3": 0})
+    return dict(
+        iteration_s=[f"{x:.3f}" for x in secs],
+        updates_per_s=f"{TD3_ITR * cfg.updates_per_iter / sum(secs[1:]):.1f}",
+        learner_only_updates_per_s=f"{cfg.updates_per_iter / upd_s:.1f}",
+        ms_per_update=f"{upd_s / cfg.updates_per_iter * 1e3:.2f}",
+        replay_size=size, ring_mb=f"{ring_mb:.1f}",
+        peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 1e6:.1f}",
+        critic_loss=f"{metrics['critic_loss']:.5f}",
+        actor_loss=f"{metrics['actor_loss']:.5f}",
+        k2_launches_per_itr=want["K2"], k3_launches_per_itr=want["K3"])
+
+
+def read_scalars(run_dir: str):
+    scalars = {}
+    with open(os.path.join(run_dir, "scalars.csv")) as f:
+        for line in f:
+            tag, _, value = line.rsplit(",", 2)
+            scalars.setdefault(tag, []).append(float(value))
+    return scalars
+
+
+def run_cli(argv, env_name: str, want):
+    """`python -m apex_tpu_torch <argv>` in-process on the card, in a
+    temporary run directory under chiprun_out/, counted against `want`;
+    returns (seconds, the run dir's experiment args, scalars, checkpoint
+    leaves)."""
+    from apex_tpu_torch.__main__ import main as cli_main
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as logdir:
+        rc, secs, n = count_launches(lambda: cli_main(
+            [*argv, "--env_name", env_name, "--logdir", logdir]))
+        if rc != 0:
+            raise AssertionError(f"{argv[0]} exited with {rc}")
+        check_counts(argv[0], n, want)
+        (run_dir,) = os.listdir(os.path.join(logdir, env_name))
+        run_dir = os.path.join(logdir, env_name, run_dir)
+        with open(os.path.join(run_dir, "experiment.pkl"), "rb") as f:
+            args = pickle.load(f)
+        if os.path.basename(run_dir) != f"{args_hash(args)}-seed0":
+            raise AssertionError(f"{argv[0]}: run dir {run_dir} is not "
+                                 "named by the hash of its arguments")
+        with open(os.path.join(run_dir, "checkpoint.pkl"), "rb") as f:
+            leaves = pickle.load(f)
+        return secs, args, read_scalars(run_dir), leaves
+
+
+def td3_cassie():
+    """`python -m apex_tpu_torch td3_sync` on Cassie-v0 (the CLI's
+    defaults: megakernel tier, 64 envs, the 1M ring), two iterations
+    (the random warm-up and one policy iteration) and the evaluation at
+    iteration 0: K1 once per substep of the 2 x 80 + 400 steps, K2 twice
+    per step and once per fresh fleet (TD3.init, the evaluation), K3
+    never; the run dir is named by the hash of apex.py's namespace, and
+    the checkpoint holds the JAX TD3 train state's leaves."""
+    steps = 2 * 80 + 400
+    secs, args, scalars, leaves = run_cli(
+        ["td3_sync", "--max_timesteps", str(2 * 80 * 64),
+         "--start_timesteps", "5120"], "Cassie-v0",
+        {"K1": SIMRATE * steps, "K1-hfield": 0, "K2": 2 * steps + 2,
+         "K3": 0})
+    if tuple(sorted(args)) != TD3_KEYS:
+        raise AssertionError(f"td3_sync: experiment.pkl keys {sorted(args)}")
+    if len(leaves) != TD3_CASSIE_LEAVES:
+        raise AssertionError(f"td3_sync: checkpoint has {len(leaves)} "
+                             f"leaves, JAX's TD3 state {TD3_CASSIE_LEAVES}")
+    for tag in ("Test/Return", "Misc/Critic Loss", "Misc/Actor Loss"):
+        if not np.all(np.isfinite(scalars[tag])):
+            raise AssertionError(f"td3_sync: {tag} = {scalars[tag]}")
+    return dict(seconds=f"{secs:.1f}", policy_steps=steps,
+                k1_launches=SIMRATE * steps, k2_launches=2 * steps + 2,
+                eval_return=f"{scalars['Test/Return'][0]:.4f}",
+                critic_loss=f"{scalars['Misc/Critic Loss'][0]:.5f}",
+                checkpoint_leaves=len(leaves))
+
+
+def ddpg_walker():
+    """`python -m apex_tpu_torch ddpg` on Walker2d at the CLI's defaults,
+    one iteration (the random warm-up: 80 steps of 64 envs, 80 updates)
+    and the 400-step evaluation: 4 K2 and 4 K3 per env step."""
+    steps = 80 + 400
+    secs, _, scalars, _ = run_cli(
+        ["ddpg", "--max_timesteps", str(80 * 64)], "Walker2d-v0",
+        {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * steps,
+         "K3": WALKER_SUBSTEPS * steps})
+    if not np.all(np.isfinite(scalars["Test/Return"])):
+        raise AssertionError(f"ddpg: Test/Return {scalars['Test/Return']}")
+    return dict(seconds=f"{secs:.1f}", env_steps=steps,
+                k2_launches=WALKER_SUBSTEPS * steps,
+                eval_return=f"{scalars['Test/Return'][0]:.4f}",
+                critic_loss=f"{scalars['Misc/Critic Loss'][0]:.5f}")
+
+
+def ars_walker():
+    """`python -m apex_tpu_torch ars` on Walker2d at the CLI's defaults, 64
+    directions: one iteration, a fleet of 128 envs for 400 steps without
+    auto-reset, 4 K2 and 4 K3 per step."""
+    secs, _, scalars, leaves = run_cli(
+        ["ars", "--n_itr", "1"], "Walker2d-v0",
+        {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * 400,
+         "K3": WALKER_SUBSTEPS * 400})
+    theta = np.asarray(leaves[0])
+    if not (np.all(np.isfinite(theta)) and np.any(theta != 0)):
+        raise AssertionError("ars: θ did not move or is not finite")
+    return dict(seconds=f"{secs:.1f}", envs=128, env_steps=400,
+                k2_launches=WALKER_SUBSTEPS * 400,
+                mean_return=f"{scalars['Test/Return'][0]:.4f}",
+                total_steps=int(leaves[-1]))
 
 
 def main() -> int:
@@ -1046,6 +1507,23 @@ def main() -> int:
     t0 = time.time()
     phase("train", t0, **train(dev))
 
+    # Walker2d on the fleet tier, and the learners beyond PPO
+    t0 = time.time()
+    walker = check_walker_fleet(dev)
+    phase("walker_fleet", t0, **walker.pop("summary"))
+    t0 = time.time()
+    wppo = walker2d_ppo(dev)
+    wppo_n = wppo.pop("launches")
+    phase("walker2d_ppo", t0, **wppo)
+    t0 = time.time()
+    phase("td3", t0, **td3_walker(dev))
+    t0 = time.time()
+    phase("td3_cassie", t0, **td3_cassie())
+    t0 = time.time()
+    phase("ddpg", t0, **ddpg_walker())
+    t0 = time.time()
+    phase("ars", t0, **ars_walker())
+
     record = {"kernels": [
         {"name": "K1 pd_substep", "route": "cuda",
          "source": "apex_tpu_torch/csrc/fleet_kernel.cu",
@@ -1069,6 +1547,14 @@ def main() -> int:
          "ms": k2[N_ENVS]["ms"], "plain_ms": k2[N_ENVS]["plain_ms"],
          "bound_ms": k2[N_ENVS]["bound_ms"],
          "bound_by": k2[N_ENVS]["bound_by"], "library_ms": None},
+        {"name": "K2 fleet_fk, Walker2d B=2048", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/fleet_fk.cu",
+         "replaces": "apex_tpu/physics/fleet_fk.py:33",
+         "launches": wppo_n["K2"], **walker["K2"]},
+        {"name": "K3 spd_inverse_bt, Walker2d M+hD n=9 B=2048",
+         "route": "cuda", "source": "apex_tpu_torch/csrc/spd_inverse.cu",
+         "replaces": "apex_tpu/ops/pallas_linalg.py:36",
+         "launches": wppo_n["K3"], **walker["K3"]},
     ]}
     at_fleet = {"K1": {k: v for k, v in k1[FLEET].items()
                        if k != "max_abs_err"},

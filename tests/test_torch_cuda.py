@@ -13,8 +13,10 @@ from apex_tpu_torch.ops import pallas_linalg
 from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
+from apex_tpu_torch.envs.walker2d import walker_model
 from chip_smoke import (fk_tree_inputs, fk_tree_model, k1_inputs,
-                        k1_standing_inputs, random_spd)
+                        k1_standing_inputs, random_spd, walker_inputs,
+                        walker_step_vs_plain)
 
 
 @pytest.fixture
@@ -72,6 +74,48 @@ def test_fk_kernel_matches_plain(cuda, which, B):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 64, 2048])
+def test_fk_kernel_matches_plain_on_walker2d(cuda, B):
+    """K2 against fk_plain on Walker2d's model (slide, slide and hinge
+    root, seven bodies), on `chip_smoke.walker_inputs`' fleet: f32
+    rounding, as on Cassie."""
+    m = walker_model()
+    gen = torch.Generator()
+    gen.manual_seed(B)
+    qpos, _, _ = walker_inputs(B, gen)
+    params = PhysParams.from_model(m, B, cuda)
+    qpos = qpos.to(cuda)
+    before = fleet_fk.fleet_fk.launches
+    got = fleet_fk.fleet_fk(m, params.body_ipos, qpos)
+    assert fleet_fk.fleet_fk.launches == before + 1
+    ref = fleet_fk.fk_plain(m, params.body_ipos, qpos)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B", [64, 2048])
+def test_walker2d_fleet_step_on_the_card_matches_plain(cuda, B):
+    """One Walker2d fleet substep through K2 and K3 (one launch each)
+    against the same step with their plain versions on the card, half the
+    fleet in contact: the JAX package's per-step tolerances between its
+    physics tiers (tests/test_fleet_parity.py), by
+    `chip_smoke.walker_step_vs_plain`."""
+    m = walker_model()
+    gen = torch.Generator()
+    gen.manual_seed(B + 1)
+    qpos, qvel, ctrl = (x.to(cuda) for x in walker_inputs(B, gen))
+    params = PhysParams.from_model(m, B, cuda)
+    before = (fleet_fk.fleet_fk.launches,
+              pallas_linalg.spd_inverse_bt.launches)
+    fleet.fleet_step(m, params, qpos, qvel, ctrl)
+    assert (fleet_fk.fleet_fk.launches,
+            pallas_linalg.spd_inverse_bt.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    _, force = walker_step_vs_plain(m, params, qpos, qvel, ctrl)
+    assert force > 0
 
 
 @pytest.mark.parametrize("n,B", [(32, 1), (32, 64), (32, 1000), (9, 64),

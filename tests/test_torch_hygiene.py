@@ -71,12 +71,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     for; with it, they run on the CPU."""
     from apex_tpu_torch.envs.cassie import CassieEnv
     from apex_tpu_torch.envs.registry import env_factory
+    from apex_tpu_torch.envs.walker2d import Walker2dEnv
     from apex_tpu_torch.runtime.evaluate import load_experiment
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: CassieEnv(), lambda: env_factory("Cassie-v0"),
                  lambda: load_experiment(CKPT),
-                 lambda: CassieEnv(device="cuda")):
+                 lambda: CassieEnv(device="cuda"), lambda: Walker2dEnv(),
+                 lambda: env_factory("Walker2d-v0")):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert CassieEnv(device="cpu").device.type == "cpu"
@@ -106,4 +108,4 @@ def test_unported_configurations_raise():
         with pytest.raises(NotImplementedError):
             CassieEnv(device="cpu", **kwargs)
     with pytest.raises(NotImplementedError):
-        env_factory("Walker2d-v0", device="cpu")
+        env_factory("CassieStanding-v0", device="cpu")
