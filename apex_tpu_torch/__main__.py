@@ -2,9 +2,12 @@
 td3_async,ddpg,rdpg,ars,eval} ...`.
 
 The subcommands and their flags mirror `apex.py` (apex.py:70-166, with
-`_common_env_args`, and apex.py:168-274 for eval). They run on the GPU;
-`--device cpu` runs the plain PyTorch versions of the kernels on the CPU.
-`eval --physics` picks the PD scan's tier (K1 "megakernel" or "fleet");
+`_common_env_args`, and apex.py:168-274 for eval: the deterministic
+evaluation, `--suite {commands,perturb,mission,sensitivity,5k,compare}`,
+`--drive`, `--gait`, `--out`). They run on the GPU; `--device cpu` runs
+the plain PyTorch versions of the kernels on the CPU. `eval --seed` seeds
+the evaluation's draws; `eval --physics` picks the PD scan's tier (K1
+"megakernel" or "fleet");
 left out, and always for the learners, the device's default (megakernel
 on CUDA, fleet on the CPU). The run directory's name hashes the namespace
 and experiment.pkl stores it, so the learners get apex.py's namespace:
@@ -143,6 +146,26 @@ def main(argv=None) -> int:
                          "checkpoint.pkl")
     ev.add_argument("--n_episodes", type=int, default=16)
     ev.add_argument("--traj_len", type=int, default=400)
+    ev.add_argument("--out", type=str, default=None,
+                    help="npz path for trajectory dump")
+    ev.add_argument("--gait", type=str, default=None,
+                    help="npz path for a qpos gait recording "
+                         "(render with tools/render_gait.py)")
+    ev.add_argument("--speed", type=float, default=1.0)
+    # behavioral eval suites (reference test_policy.py:49-121 dispatch)
+    ev.add_argument("--suite", type=str, default=None,
+                    choices=["commands", "perturb", "mission",
+                             "sensitivity", "5k", "compare"])
+    ev.add_argument("--pdf", type=str, default=None,
+                    help="write the suite report to this PDF")
+    ev.add_argument("--compare_to", type=str, default=None,
+                    help="second run dir for --suite compare")
+    ev.add_argument("--mission", type=str, default="default")
+    ev.add_argument("--drive", type=str, default=None,
+                    help="timed key-command script (JSON list of "
+                         "[step, key]); the scripted equivalent of "
+                         "the reference's interactive keyboard eval")
+    ev.add_argument("--drive_steps", type=int, default=300)
     ev.add_argument("--seed", type=int, default=42)
     ev.add_argument("--physics", type=str, default=None,
                     choices=["megakernel", "fleet"],
@@ -152,12 +175,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.cmd == "eval":
-        from apex_tpu_torch.runtime.evaluate import eval_checkpoint
-
-        eval_checkpoint(args.path, n_episodes=args.n_episodes,
-                        traj_len=args.traj_len, device=args.device,
-                        seed=args.seed, physics=args.physics)
-        return 0
+        return _eval(args)
 
     if args.cmd == "ppo" and args.recurrent:
         raise NotImplementedError(
@@ -195,6 +213,81 @@ def main(argv=None) -> int:
         from apex_tpu_torch.agents.ars import run_experiment
 
         run_experiment(args, device=device)
+    return 0
+
+
+def _eval(args) -> int:
+    """apex.py eval (apex.py:168-274): a scripted drive, one of the
+    behavioral suites, or the deterministic evaluation (with a trajectory
+    dump and a gait recording)."""
+    import numpy as np
+
+    from apex_tpu_torch.runtime import evaluate
+
+    device, physics = args.device, args.physics
+    if args.drive:
+        from apex_tpu_torch.runtime.drive import drive_policy
+
+        exp = evaluate.load_experiment(args.path, device=device,
+                                       physics=physics)
+        res = drive_policy(exp.actor, exp.norm, exp.env, args.drive,
+                           n_steps=args.drive_steps)
+        print(f"eval reward: {float(res['eval_reward']):.2f}  "
+              f"(steps {args.drive_steps}, falls "
+              f"{int(res['done'].sum())})")
+        if args.out:
+            np.savez(args.out, **res)
+            print("telemetry:", args.out)
+        return 0
+
+    if args.suite:
+        from apex_tpu_torch.runtime import eval_suites, report
+
+        if args.suite == "compare":
+            res = eval_suites.compare_policies(
+                args.path, args.compare_to, n_episodes=args.n_episodes,
+                traj_len=args.traj_len, device=device)
+            if args.pdf:
+                print("report:", report.report_compare(res, args.pdf))
+            return 0
+        exp = evaluate.load_experiment(args.path, device=device,
+                                       physics=physics)
+        env = exp.env
+
+        def policy_fn(obs):
+            return exp.actor.act(exp.norm, obs, deterministic=True)
+
+        if args.suite == "perturb":
+            res = eval_suites.eval_perturbation(env, policy_fn)
+            print("max force per angle:", res["max_force_per_angle"])
+            if args.pdf:
+                print("report:", report.report_perturbation(res, args.pdf))
+        elif args.suite == "commands":
+            print(eval_suites.eval_commands(env, policy_fn))
+        elif args.suite == "mission":
+            res = eval_suites.eval_mission(
+                eval_suites.playground_policy(exp), mission=args.mission,
+                simrate=env.simrate, device=device, pd_tier=physics)
+            print({k: v for k, v in res.items() if np.ndim(v) == 0})
+        elif args.suite == "sensitivity":
+            print(eval_suites.eval_sensitivity(env, policy_fn))
+        else:
+            res = eval_suites.eval_5k_matrix(policy_fn, env)
+            print("5k pass rate:", res["pass_rate"])
+            for ax in ("by_mission", "by_speed", "by_terrain",
+                       "by_friction", "by_foot_mass"):
+                print(f"  {ax}:", {k: round(float(v), 3)
+                                   for k, v in res[ax].items()})
+            if args.pdf:
+                print("report:", report.report_5k(res, args.pdf))
+        return 0
+
+    evaluate.eval_checkpoint(args.path, n_episodes=args.n_episodes,
+                             traj_len=args.traj_len, device=device,
+                             seed=args.seed, physics=physics, out=args.out)
+    if args.gait:
+        evaluate.dump_gait(args.path, out=args.gait, speed=args.speed,
+                           device=device, physics=physics)
     return 0
 
 

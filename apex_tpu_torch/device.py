@@ -6,6 +6,8 @@ for the tests, which hold the port against the JAX package on small inputs.
 from __future__ import annotations
 
 import functools
+import subprocess
+import time
 
 import numpy as np
 import torch
@@ -38,3 +40,35 @@ def const(x, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     a = np.asarray(x)
     return _const(tuple(a.ravel().tolist()), a.shape, dtype,
                   torch.device(device))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` prints them for the first
+    card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def count_launches(fn):
+    """Run fn() on the card with every CUDA kernel's launch count at 0
+    just before; returns (fn's result, seconds, {kernel: launches just
+    after}): K1 (with its heightfield launches apart as "K1-hfield"), K2
+    and K3."""
+    from apex_tpu_torch.ops import pallas_linalg
+    from apex_tpu_torch.physics import fleet_fk, fleet_kernel
+
+    wrappers = {"K1": fleet_kernel.pd_substep, "K2": fleet_fk.fleet_fk,
+                "K3": pallas_linalg.spd_inverse_bt}
+    for w in wrappers.values():
+        w.launches = 0
+    fleet_kernel.pd_substep.hfield_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    counts["K1-hfield"] = fleet_kernel.pd_substep.hfield_launches
+    return result, time.time() - t0, counts

@@ -11,7 +11,10 @@ Any other configuration raises NotImplementedError.
 The env is a fleet: every state field is batch-last (rows, B), the
 physics runs through the PD scan of `physics/cassie_sim.py` (K1 or the
 batch-last fleet step), and randomness enters as explicit draws
-(`ResetNoise`, `StepNoise`).
+(`ResetNoise`, `StepNoise`). Beside reset and step, the entry points of
+the eval suites (`runtime/eval_suites.py`): the deterministic
+`reset_for_test`, `update_speed_state` and `step_basic`, and the state's
+per-env phase increment `phase_add`.
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from apex_tpu_torch.device import resolve_device
+from apex_tpu_torch.device import const, resolve_device
 from apex_tpu_torch.envs.base import Env, to_batch_first
 from apex_tpu_torch.physics.cassie_sim import (
+    MOTOR_QVEL_IDX,
     PD_TIERS,
     CassiePhysState,
     CassieStateOut,
@@ -38,6 +42,7 @@ from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.rewards.clock import (
     GaitClock,
     RewardInputs,
+    STANCE_GROUNDED,
     STANCE_ZERO,
     build_clock,
     early_clock_reward,
@@ -79,9 +84,8 @@ _DAMP_SCALED[30] = False           # right plantar rod
 
 @dataclasses.dataclass
 class CassieEnvState:
-    """Fleet state, batch-last. The JAX state's remaining fields
-    (obs_history, phase_add) feed only configurations the port does not
-    run."""
+    """Fleet state, batch-last. The JAX state's remaining field,
+    obs_history, feeds only configurations the port does not run."""
     phys: CassiePhysState
     params: PhysParams
     clock: GaitClock
@@ -103,6 +107,10 @@ class CassieEnvState:
     # update them, early_clock leaves them False
     l_high: torch.Tensor            # (B,) bool
     r_high: torch.Tensor            # (B,) bool
+    # per-step phase increment (envs/cassie.py:145): 1 from a reset; the
+    # command suite sets 1.5 above 1.4 m/s, the scripted drive's j/h keys
+    # move it by 0.1
+    phase_add: torch.Tensor         # (B,)
 
 
 class ResetNoise(NamedTuple):
@@ -310,30 +318,132 @@ class CassieEnv(Env):
             joint_enc_noise=jenc,
             prev_action=torch.zeros((self.action_size, B), device=dev),
             prev_torque=torch.zeros((10, B), device=dev),
-            l_high=no, r_high=no.clone())
+            l_high=no, r_high=no.clone(),
+            phase_add=torch.ones((B,), device=dev))
         # populate the estimator from FK (the reference reset ends with
         # one step_pd to refresh cassie_state, cassie.py:665)
         est = estimate_state(self.model, phys,
                              static_diag(self.model, params, phys))
         return state, self._build_obs(state, est)
 
+    def reset_for_test(self, batch: int):
+        """Deterministic eval reset (envs/cassie.py:412-444, reference
+        reset_for_test, cassie.py:682-733): default dynamics, zero encoder
+        noise, speed, side speed, orient_add and phase 0, and a grounded
+        clock with swing 0.15 / stance 0.25. The JAX env's loaded-clock
+        branch serves the `load_*` rewards, which the port refuses at
+        construction. The command and 5k suites drive the env from this
+        state."""
+        dev = self.device
+        full = lambda v: torch.full((batch,), v, device=dev)
+        swing, stance = full(0.15), full(0.25)
+        mode = const(STANCE_GROUNDED, dev)[:, None].expand(3, batch)
+        clock = build_clock(swing, stance, mode, self.strict_relaxer, True,
+                            float(self._freq))
+        phys = CassiePhysState.standing(batch, dev)
+        params = PhysParams.from_model(self.model, batch, dev)
+        zi = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        no = torch.zeros((batch,), dtype=torch.bool, device=dev)
+        state = CassieEnvState(
+            phys=phys, params=params, clock=clock, phase=full(0.0),
+            counter=zi, time=zi.clone(), speed=full(0.0),
+            side_speed=full(0.0), orient_add=full(0.0),
+            swing_duration=swing, stance_duration=stance,
+            stance_mode=mode.contiguous(),
+            motor_enc_noise=torch.zeros((10, batch), device=dev),
+            joint_enc_noise=torch.zeros((6, batch), device=dev),
+            prev_action=torch.zeros((self.action_size, batch), device=dev),
+            prev_torque=torch.zeros((10, batch), device=dev),
+            l_high=no, r_high=no.clone(), phase_add=full(1.0))
+        est = estimate_state(self.model, phys,
+                             static_diag(self.model, params, phys))
+        return state, self._build_obs(state, est)
+
+    def update_speed_state(self, state: CassieEnvState, new_speed,
+                           new_side_speed=0.0, quantize_phase: bool = True):
+        """The reference's update_speed (envs/cassie.py:445-474,
+        cassie.py:751-768): clamp the commanded speed, rebuild the
+        speed-dependent durations and gait clock, and rescale the phase
+        into the new clock's length. quantize_phase floors the rescaled
+        phase as the reference's int() does; called every step of a
+        speed ramp, the floor cancels the phase advance and freezes the
+        gait clock for the ramp. The 5k suite keeps that quirk (PARITY.md
+        row 34)."""
+        B, dev = state.phase.shape[-1], self.device
+        as_b = lambda v: torch.as_tensor(
+            v, dtype=torch.float32, device=dev).expand(B)
+        speed = torch.clamp(as_b(new_speed), self.min_speed, self.max_speed)
+        side = torch.clamp(as_b(new_side_speed), self.min_side_speed,
+                           self.max_side_speed)
+        swing, stance = speed_to_durations(speed)
+        clock = build_clock(swing, stance, state.stance_mode,
+                            self.strict_relaxer, True, float(self._freq))
+        phase = clock.phaselen * state.phase / state.clock.phaselen
+        if quantize_phase:
+            phase = torch.floor(phase)
+        return dataclasses.replace(
+            state, speed=speed, side_speed=side, swing_duration=swing,
+            stance_duration=stance, clock=clock, phase=phase)
+
     # ------------------------------------------------------------------
-    def step(self, state: CassieEnvState, action: torch.Tensor,
-             noise: StepNoise):
+    def _physics(self, state: CassieEnvState, act: torch.Tensor):
+        """The PD scan from the policy's targets act (10, B), and the
+        firmware estimator's view of its end: (PD targets, phys, diag_seq,
+        qvel_seq, qacc_seq, est)."""
         m = self.model
-        act = action.T                                    # (10, B)
         target = act + self._offset - state.motor_enc_noise
         cmd = PDCommand.from_targets(target)
-
         phys, diag_seq, qvel_seq, qacc_seq = pd_scan(
             m, state.params, state.phys, cmd, self.simrate, self.pd_tier)
-
         # firmware-estimator EMA in closed form:
         # e_L = a^L e_0 + (1-a) sum_t a^(L-1-t) v_t
         ema_v = (self._ema_decay * state.phys.qvel
                  + torch.tensordot(self._w_ema, qvel_seq, dims=1))
         ema_a = (self._ema_decay * state.phys.qacc
                  + torch.tensordot(self._w_ema, qacc_seq, dims=1))
+        est = estimate_state(
+            m, dataclasses.replace(phys, qvel=ema_v, qacc=ema_a),
+            _last_substep(diag_seq))
+        return target, phys, diag_seq, qvel_seq, qacc_seq, est
+
+    def _advance_phase(self, state: CassieEnvState):
+        """(time, phase, counter) after one policy step (cassie.py:447-453):
+        the phase moves by phase_add and wraps to 0 past the clock."""
+        phase = state.phase + state.phase_add
+        wrapped = phase > state.clock.phaselen
+        return (state.time + 1, torch.where(wrapped, 0.0, phase),
+                state.counter + wrapped.to(torch.int32))
+
+    def step_basic(self, state: CassieEnvState, action: torch.Tensor):
+        """The reference's step_basic (envs/cassie.py:476-520, cassie.py:
+        499-521): physics, phase advance and observation; no reward, no
+        tracking costs, no random command changes. The 5k suite drives the
+        policy through it. Returns (state, obs)."""
+        act = action.T
+        _, phys, diag_seq, _, _, est = self._physics(state, act)
+        time_, phase, counter = self._advance_phase(state)
+        new_state = dataclasses.replace(
+            state, phys=phys, phase=phase, counter=counter, time=time_,
+            prev_action=act, prev_torque=diag_seq.motor_torque[-1])
+        return new_state, self._build_obs(new_state, est)
+
+    def step(self, state: CassieEnvState, action: torch.Tensor,
+             noise: StepNoise):
+        return self._step(state, action, noise, with_info=False)[:4]
+
+    def step_info(self, state: CassieEnvState, action: torch.Tensor,
+                  noise: StepNoise):
+        """`step`, and the JAX step's info diagnostics (envs/cassie.py:
+        835-850) that the recording and driving tools read: (state, obs,
+        reward, terminated, info), info's entries batch-last."""
+        return self._step(state, action, noise, with_info=True)
+
+    def _step(self, state: CassieEnvState, action: torch.Tensor,
+              noise: StepNoise, with_info: bool):
+        m = self.model
+        act = action.T                                    # (10, B)
+        target, phys, diag_seq, qvel_seq, qacc_seq, est = self._physics(
+            state, act)
 
         # position-difference foot velocities (reference cassie.py:330-331);
         # the first substep's previous foot position is the FK of the
@@ -347,18 +457,10 @@ class CassieEnv(Env):
         frc_seq = diag_seq.foot_frc_z                     # (L, 2, B)
         motor_torque = diag_seq.motor_torque[-1]
 
-        # phase advance (cassie.py:447-453)
-        time_ = state.time + 1
-        phase = state.phase + 1.0
-        wrapped = phase > state.clock.phaselen
-        counter = state.counter + wrapped.to(torch.int32)
-        phase = torch.where(wrapped, 0.0, phase)
+        time_, phase, counter = self._advance_phase(state)
 
         # reward (compute_reward, cassie.py:770-785), on the firmware
         # estimator's filtered velocities
-        est = estimate_state(
-            m, dataclasses.replace(phys, qvel=ema_v, qacc=ema_a),
-            _last_substep(diag_seq))
         # the swing-apex flags feed only the speedmatch rewards; early_clock
         # leaves them at the reset's False
         l_high, r_high = state.l_high, state.r_high
@@ -374,8 +476,8 @@ class CassieEnv(Env):
                 foot_vel_seq, orient_seq, l_high_seq, r_high_seq, time_)
             reward = self._speedmatch(si)
         else:
-            l_orient_cost, r_orient_cost = orient_seq.mean(dim=0)
             l_foot_frc, r_foot_frc = frc_seq.mean(dim=0)
+            l_orient_cost, r_orient_cost = orient_seq.mean(dim=0)
             ri = RewardInputs(
                 qpos=phys.qpos, qvel=phys.qvel,
                 l_foot_frc=l_foot_frc, r_foot_frc=r_foot_frc,
@@ -408,7 +510,17 @@ class CassieEnv(Env):
             speed=speed, side_speed=side_speed, orient_add=orient_add,
             prev_action=act, prev_torque=motor_torque,
             l_high=l_high, r_high=r_high)
-        return new_state, self._build_obs(new_state, est), reward, terminated
+        info = None
+        if with_info:
+            l_foot_frc, r_foot_frc = frc_seq.mean(dim=0)
+            info = {"l_foot_frc": l_foot_frc, "r_foot_frc": r_foot_frc,
+                    "foot_pos": diag_seq.foot_pos[-1], "qpos": phys.qpos,
+                    "pd_target": target, "motor_pos": est.motor_position,
+                    "motor_vel": phys.qvel[const(
+                        MOTOR_QVEL_IDX, phys.qvel.device, torch.int64)],
+                    "motor_torque": motor_torque}
+        return (new_state, self._build_obs(new_state, est), reward,
+                terminated, info)
 
     def _speedmatch_inputs(self, state, act, phys, est, diag_seq, qvel_seq,
                            qacc_seq, foot_vel_seq, orient_seq, l_high_seq,
@@ -532,8 +644,7 @@ class CassieEnv(Env):
         """The JAX CassieEnvState's leaves (envs/cassie.py:120-145), batch-
         first. The fields the port does not carry hold what its
         configurations leave in them: the current observation as the
-        one-frame history, a phase increment of 1."""
-        B = obs.shape[0]
+        one-frame history."""
         fields = [state.phys.qpos, state.phys.qvel, state.phys.qacc,
                   *(getattr(state.params, f.name)
                     for f in dataclasses.fields(state.params)),
@@ -547,7 +658,7 @@ class CassieEnv(Env):
         return [to_batch_first(x) for x in fields] + [
             obs.detach().cpu().numpy()[:, None, :].astype(np.float32),
             to_batch_first(state.l_high), to_batch_first(state.r_high),
-            np.ones(B, np.float32)]
+            to_batch_first(state.phase_add)]
 
     # ------------------------------------------------------------------
     def _rotate_to_orient(self, orient_add: torch.Tensor, vec: torch.Tensor):

@@ -35,6 +35,16 @@ each printed with its seconds as it ends:
              and steps tables, envs beyond the table's edge, a quarter of
              the envs on the plane), and its plane envs against the flat
              kernel bit for bit
+  K1-suites  K1 at the eval suites' fleets: at B = 10,000 (the command
+             suite) and 3,971 (a 5k cell), a sample of envs launched alone
+             bit for bit as in the full launch and against the plain
+             version; the same for the heightfield build with the lookup
+             on, at 10,000 on terrain and at 3,971 on the 5k noise and
+             hill tables; the 5k ramps (heightfield model, hfield_active
+             0, floors tilted 3 degrees) against the plain version and bit
+             for bit against the flat kernel; kernel ms for each (run
+             before the long phases: later in a run the profiler's traces
+             lost launches)
   parity     a reset and one fleet substep on the GPU against the CPU;
              a GPU env step gives finite values of the right shapes
   eval       the 64-env, 300-step evaluation on the megakernel tier for
@@ -68,6 +78,18 @@ each printed with its seconds as it ends:
              iterations and an eval, counted; run dir name and checkpoint
   ddpg, ars  `python -m apex_tpu_torch ddpg` and `ars` on Walker2d at the
              CLI's defaults, one iteration each, counted
+  suites_mk4 the eval battery's suites on mk4_hardened through the port's
+             entry points (`runtime/eval_suites.py`): perturbation on the
+             full 8 x 14 x 4 grid (448 envs, 88 steps; survivors at 25 N,
+             not all at 350 N, the mean largest push within 75 N of
+             JAX's), commands at 10,000 trials (800 steps), the five
+             missions as one fleet; each counted, beside JAX's committed
+             figures
+  suites_mk5c
+             perturbation and commands on mk5c (every K1 launch a
+             heightfield one), and one full 5k cell, straight_1.4 (3,971
+             envs: 11 terrains x 19 frictions x 19 foot masses, 959 steps
+             of step_basic), its pass rate beside JAX's
 
 The line before the last holds the kernels' JSON record, the card's name
 and power limit precede it, and the last line is the JSON verdict. Any
@@ -79,7 +101,6 @@ import contextlib
 import json
 import os
 import pickle
-import subprocess
 import sys
 import tempfile
 import time
@@ -89,6 +110,7 @@ import torch
 
 from apex_tpu_torch.agents.ppo import PPO, PPOConfig
 from apex_tpu_torch.agents.td3 import TD3, TD3Config, copy_params
+from apex_tpu_torch.device import card_line, count_launches
 from apex_tpu_torch.envs.cassie import CassieEnv
 from apex_tpu_torch.envs.walker2d import Walker2dEnv, walker_model
 from apex_tpu_torch.ops import cuda_build, pallas_linalg
@@ -101,8 +123,10 @@ from apex_tpu_torch.physics.cassie_sim import (
     cassie_model,
 )
 from apex_tpu_torch.physics.engine import PhysParams
+from apex_tpu_torch.runtime import eval_suites
 from apex_tpu_torch.runtime.evaluate import eval_checkpoint, load_experiment
 from apex_tpu_torch.runtime.log import args_hash
+from apex_tpu_torch.utils.quaternion import euler2quat
 from apex_tpu_torch.utils.terrain import terrain_bank
 
 CKPT = "curves/cassie_mk4_hardened_ckpt"
@@ -128,13 +152,6 @@ def phase(name: str, t0: float, **info) -> None:
     print(f"[{name}] {time.time() - t0:.2f} s {fields}".rstrip(), flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of fn() over `iters` back-to-back calls, by CUDA
     events around the whole run, after `warmup` calls."""
@@ -151,33 +168,83 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+SLEEP_CYCLES = 50_000_000         # ~30 ms at the H100's boost clock
+GAP_MS = 0.003                    # allowance per launch between kernels
+TRACE_ATTEMPTS = 3                # traces taken before a reading fails
+TRACE = {}                        # what the last device_ms call read
+
+
+def queued_ms(fn, iters: int) -> tuple[float, bool]:
+    """(mean ms per call of fn() by CUDA events, whether the calls ran
+    back to back): the stream is held by a sleeping kernel while the host
+    queues the calls, so where the host has queued them all before the
+    sleep ends (the start event not yet reached), the events time the
+    card's work alone, gaps between launches included; where fn() waits
+    on the card, they time the host as well."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters, queued
+
+
 def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2) -> float:
     """Mean device time per call of fn() over `iters` calls, from
     torch.profiler's CUDA trace: for `kernel`, the mean duration of the
     traced launches whose name holds it (the trace may miss one of a
     burst); for "", the summed durations of every kernel over `iters`.
     Events around back-to-back calls would time the host instead, once a
-    call's Python and launch work outlasts its kernel. A trace that holds
-    fewer than half the launches is taken once more (the profiler now and
-    then returns a trace without its device events)."""
+    call's Python and launch work outlasts its kernel. Each trace is held
+    to the same calls timed by `queued_ms`: its kernels' summed time per
+    call must lie within 20 % of the events' time (less GAP_MS per launch
+    when the calls ran back to back, no more than it otherwise), and the
+    launches of `kernel`, the same work each time, within a factor 2 of
+    their median duration. A trace that holds fewer than half the
+    launches or fails those checks is taken again, up to TRACE_ATTEMPTS
+    traces in all, and then the run fails. `TRACE` keeps the last
+    reading: its launches, names, durations and the events' time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    for attempt in range(2):
+    ev_ms, queued = queued_ms(fn, iters)
+    for attempt in range(TRACE_ATTEMPTS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        on_card = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and kernel in e.name]
-        if on_card and (not kernel or 2 * len(on_card) >= iters):
+        every = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        on_card = [e for e in every if kernel in e.name]
+        us = sorted(e.time_range.elapsed_us() for e in on_card)
+        med = us[len(us) // 2] if us else 0.0
+        total_ms = sum(e.time_range.elapsed_us() for e in every) / iters / 1e3
+        TRACE.clear()
+        TRACE.update(
+            kernel=kernel, iters=iters, launches=len(on_card),
+            names=sorted({e.name[:60] for e in on_card}),
+            us_min=us[0] if us else None, us_median=med,
+            us_max=us[-1] if us else None, all_kernels=len(every),
+            trace_ms_per_call=round(total_ms, 4),
+            events_ms_per_call=round(ev_ms, 4), back_to_back=queued)
+        low = 0.8 * ev_ms - GAP_MS * len(every) / iters if queued else 0.0
+        even = not kernel or (bool(us) and us[-1] <= 2 * med
+                              and med <= 2 * us[0])
+        if (on_card and (not kernel or 2 * len(on_card) >= iters) and even
+                and low <= total_ms <= 1.2 * ev_ms):
             break
+        print(f"  device_ms: trace {attempt + 1} refused: {TRACE}",
+              flush=True)
     else:
-        raise AssertionError(f"profiler saw {len(on_card)} launches of "
-                             f"{kernel or 'any kernel'} in {iters} calls")
+        raise AssertionError(f"device_ms: {TRACE_ATTEMPTS} traces refused: "
+                             f"{TRACE}")
     per = len(on_card) if kernel else iters
     return sum(e.time_range.elapsed_us() for e in on_card) / per / 1e3
 
@@ -810,23 +877,6 @@ def check_parity(dev):
     return reset_diff, float(dv.max()), float(dq.max()), ratio
 
 
-def count_launches(fn):
-    """Run fn() with every kernel's launch count at 0 just before; returns
-    (fn's result, seconds, {kernel: launches just after})."""
-    wrappers = {"K1": fleet_kernel.pd_substep, "K2": fleet_fk.fleet_fk,
-                "K3": pallas_linalg.spd_inverse_bt}
-    for w in wrappers.values():
-        w.launches = 0
-    fleet_kernel.pd_substep.hfield_launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    result = fn()
-    torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
-    counts["K1-hfield"] = fleet_kernel.pd_substep.hfield_launches
-    return result, time.time() - t0, counts
-
-
 def check_counts(name, got, want):
     if got != want:
         raise AssertionError(f"{name}: launch counts {got}, want {want}")
@@ -1421,6 +1471,280 @@ def ars_walker():
                 total_steps=int(leaves[-1]))
 
 
+# ---------------------------------------------------------------------------
+# the eval battery's suites (runtime/eval_suites.py)
+# ---------------------------------------------------------------------------
+
+# JAX's committed battery results (tools/run_eval_battery.py)
+JAX_BATTERY = {"mk4": "curves/cassie_mk4_hardened_eval_r5",
+               "mk5c": "curves/cassie_mk5c_eval"}
+SUITE_TRIALS = 10000              # the command suite's trials
+CELL_5K = ("straight", 1.4)       # the 5k cell chip_smoke runs in full
+CELL_5K_ENVS = 11 * 19 * 19       # terrains x frictions x foot masses
+PERTURB_STEPS = 40 + 8 + 40       # settle, push, recover
+PERTURB_MEAN_TOL = 75.0           # N, mean over angles against JAX's
+COMMAND_STEPS = 4 * 200           # four commands of 200 steps
+
+
+def sample_cols(B: int, every: int = 10):
+    """Every `every`-th env of a fleet of B and its last eight (the last,
+    partial block of a launch)."""
+    return torch.unique(torch.cat([torch.arange(0, B, every),
+                                   torch.arange(max(B - 8, 0), B)]))
+
+
+def take_cols(cols, params, *rows):
+    cut = lambda x: x[..., cols.to(x.device)].contiguous()
+    return (PhysParams(**{k: cut(v) for k, v in vars(params).items()}),
+            *(cut(x) for x in rows))
+
+
+def k1_ramp_inputs(B: int, gen: torch.Generator, dev):
+    """The 5k ramp cells through K1's heightfield build: the standing
+    fleet of `k1_standing_inputs` on the heightfield model's parameters,
+    a noise table in every env but hfield_active 0, and the floor tilted
+    as up_3, down_3, left_3 and right_3 in turn (`_terrain_config`'s
+    signs)."""
+    m = cassie_model(enable_hfield=True)
+    params = PhysParams.from_model(m, B, torch.device("cpu"))
+    tilts = [eval_suites._terrain_config(t)[2]
+             for t in ("up_3", "down_3", "left_3", "right_3")]
+    pitch = torch.tensor([tilts[b % 4][0] for b in range(B)],
+                         dtype=torch.float32)
+    roll = torch.tensor([tilts[b % 4][1] for b in range(B)],
+                        dtype=torch.float32)
+    params.floor_quat = euler2quat(z=torch.zeros(B), y=pitch,
+                                   x=roll).contiguous()
+    table = torch.as_tensor(eval_suites._terrain_config("noise1")[1])
+    params.hfield = table[:, :, None].expand(32, 32, B).contiguous()
+    params.hfield_active = torch.zeros(B)
+    return k1_standing_inputs(B, gen, dev, params=params)
+
+
+TERRAINS_5K_HFIELD = ("noise1", "noise2", "noise3", "hill1", "hill2",
+                      "hill3")
+
+
+def k1_5k_terrain_inputs(B: int, gen: torch.Generator, dev):
+    """The 5k noise and hill cells through K1's heightfield build: the
+    standing fleet of `k1_standing_inputs` on the heightfield model's
+    parameters, the six tables of `_terrain_config` in turn (none from
+    the env's terrain bank), hfield_active 1, and each env moved to a
+    uniform point within 9.5 m of the table's centre (every eighth to
+    10.45 m, past its edge: the lookup's clip) and lifted by the table's
+    height at the nearest cell, so that the feet meet the terrain there."""
+    m = cassie_model(enable_hfield=True)
+    params = PhysParams.from_model(m, B, torch.device("cpu"))
+    tables = torch.stack([torch.as_tensor(eval_suites._terrain_config(n)[1])
+                          for n in TERRAINS_5K_HFIELD])
+    env = torch.arange(B)
+    params.hfield = tables[env % len(tables)].permute(1, 2, 0).contiguous()
+    params.hfield_active = torch.ones(B)
+    xy = 19.0 * torch.rand(2, B, generator=gen) - 9.5
+    xy[:, env % 8 == 5] *= 1.1
+    res = params.hfield.shape[0]
+    cell = ((xy + 10.0) / 20.0 * (res - 1)).round().clamp(0, res - 1).long()
+    lift = params.hfield[cell[0], cell[1], env]
+    params, qpos, qvel, rows = k1_standing_inputs(B, gen, dev, params=params)
+    qpos[0:2] = xy.to(dev)
+    qpos[2] += lift.to(dev)
+    return params, qpos, qvel, rows
+
+
+def k1_at_scale(m, params, qpos, qvel, rows, gen, what: str):
+    """K1 on a whole large fleet, held on a sample of its envs
+    (`sample_cols`): the sample launched alone gives the full launch's
+    bits (no env reads another's rows, whatever the block count), and
+    against the plain version under `kernel_bounds`. Returns (max abs
+    error, kernel ms over the whole fleet, the full launch's outputs)."""
+    full = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    cols = sample_cols(qpos.shape[-1])
+    sub = take_cols(cols, params, qpos, qvel, rows)
+    alone = fleet_kernel.pd_substep(m, *sub)
+    c = cols.to(qpos.device)
+    if not all(torch.equal(a, f[:, c]) for a, f in zip(alone, full)):
+        raise AssertionError(f"{what}: the sampled envs launched alone "
+                             "differ from the full launch")
+    worst, _, _ = k1_vs_plain(m, *sub, gen, what)
+    ms = device_ms(lambda: fleet_kernel.pd_substep(m, params, qpos, qvel,
+                                                   rows), 10,
+                   "pd_substep_kernel")
+    return max(v[0] for v in worst.values()), ms, full
+
+
+def check_k1_suites(gen, dev):
+    """K1 at the suites' fleets, each held on a sample against the plain
+    version: the flat kernel at B = 10,000 and 3,971; the heightfield
+    build at 10,000 on `add_terrain`'s terrain (the mk5c command suite),
+    at 3,971 on the 5k noise and hill tables (`k1_5k_terrain_inputs`),
+    and at 3,971 on the 5k ramps, there also bit for bit against the flat
+    kernel on the same inputs (hfield_active 0 selects the plane)."""
+    out = {}
+    m = cassie_model()
+    for B in (SUITE_TRIALS, CELL_5K_ENVS):
+        err, ms, _ = k1_at_scale(m, *k1_standing_inputs(B, gen, dev), gen,
+                                 f"K1 B={B}")
+        out[f"k1_B{B}"] = dict(max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}")
+    mh = cassie_model(enable_hfield=True)
+    for name, B, inputs in (
+            ("terrain", SUITE_TRIALS,
+             k1_standing_inputs(SUITE_TRIALS, gen, dev, terrain=0.03)),
+            ("5k_tables", CELL_5K_ENVS,
+             k1_5k_terrain_inputs(CELL_5K_ENVS, gen, dev))):
+        err, ms, _ = k1_at_scale(mh, *inputs, gen,
+                                 f"K1-hfield {name} B={B}")
+        out[f"k1_hfield_{name}_B{B}"] = dict(max_abs_err=f"{err:.3e}",
+                                             ms=f"{ms:.4f}")
+    params, qpos, qvel, rows = k1_ramp_inputs(CELL_5K_ENVS, gen, dev)
+    err, ms, got = k1_at_scale(mh, params, qpos, qvel, rows, gen,
+                               f"K1-hfield ramps B={CELL_5K_ENVS}")
+    flat = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    if not all(torch.equal(a, b) for a, b in zip(got, flat)):
+        raise AssertionError("K1-hfield ramps: the heightfield build with "
+                             "hfield_active 0 differs from the flat kernel")
+    out[f"k1_hfield_ramps_B{CELL_5K_ENVS}"] = dict(
+        max_abs_err=f"{err:.3e}", ms=f"{ms:.4f}",
+        bitwise_flat_kernel=True)
+    for k, v in out.items():
+        print(f"  {k}: " + ", ".join(f"{a} {b}" for a, b in v.items()),
+              flush=True)
+    return out
+
+
+def suite_line(name, secs, n, **info):
+    """Print one suite's figures, launches, seconds and peak memory on
+    its own line, and start the next suite's peak from zero."""
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    fields = " ".join(f"{k}={v}" for k, v in info.items())
+    print(f"  {name}: {fields} launches={n} host_s={secs:.2f} "
+          f"peak_MiB={peak:.1f}", flush=True)
+
+
+def run_suites(tag: str, ckpt: str):
+    """The eval battery's suites on `ckpt` through the port's entry
+    points, each counted (K1 once per substep, a heightfield launch on a
+    terrain checkpoint; K2 at every reset and once per `step` for the
+    pre-step foot positions, none in step_basic or the playground's step;
+    K3 never) and printed beside JAX's committed figures."""
+    exp = load_experiment(ckpt, device="cuda")
+    env, simrate = exp.env, exp.env.simrate
+    hfield = env.model.enable_hfield
+    with open(os.path.join(JAX_BATTERY[tag], "summary.json")) as f:
+        jax_sum = json.load(f)
+
+    def policy_fn(obs):
+        return exp.actor.act(exp.norm, obs, deterministic=True)
+
+    def want(steps, k2, hf=hfield):
+        return {"K1": steps * simrate, "K1-hfield": steps * simrate * hf,
+                "K2": k2, "K3": 0}
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    res, secs, n = count_launches(lambda: eval_suites.eval_perturbation(
+        env, policy_fn, max_force=350.0))
+    check_counts(f"{tag} perturb", n, want(PERTURB_STEPS,
+                                           PERTURB_STEPS + 1))
+    surv = res["survival"]
+    if surv.shape != (8, 14, 4):
+        raise AssertionError(f"{tag} perturb: survival {surv.shape}")
+    got = [float(x) for x in res["max_force_per_angle"]]
+    ref = jax_sum["perturb"]["max_force_per_angle"]
+    mean_gap = abs(np.mean(got) - np.mean(ref))
+    out["perturb"] = dict(max_force_per_angle=got, jax=ref,
+                          within_25N=[abs(a - b) <= 25.0
+                                      for a, b in zip(got, ref)],
+                          mean_N=float(np.mean(got)),
+                          jax_mean_N=float(np.mean(ref)),
+                          survivors_25N=int(surv[:, 0].sum()),
+                          survivors_350N=int(surv[:, -1].sum()),
+                          n_nonfinite=res["n_nonfinite"])
+    suite_line(f"{tag} perturb (448 envs)", secs, n, **out["perturb"])
+    # a push that never reaches K1 survives everywhere (350 N at every
+    # angle); one that knocks every env over survives nowhere. JAX's own
+    # seeds move the mean over angles by up to 62.5 N (PERF.md section 6)
+    if surv[:, -1].all() or not surv[:, 0].any():
+        raise AssertionError(f"{tag} perturb: {int(surv[:, 0].sum())} of "
+                             f"32 survive 25 N and {int(surv[:, -1].sum())}"
+                             " of 32 survive 350 N")
+    if not mean_gap <= PERTURB_MEAN_TOL:
+        raise AssertionError(f"{tag} perturb: mean largest push "
+                             f"{np.mean(got):.1f} N, JAX's "
+                             f"{np.mean(ref):.1f} N")
+
+    res, secs, n = count_launches(lambda: eval_suites.eval_commands(
+        env, policy_fn, n_trials=SUITE_TRIALS))
+    check_counts(f"{tag} commands", n, want(COMMAND_STEPS,
+                                            COMMAND_STEPS + 1))
+    p, pj = float(res["pass_rate"]), jax_sum["commands"]["pass_rate"]
+    tol = 1.96 * (pj * (1 - pj) * 2 / SUITE_TRIALS) ** 0.5
+    out["commands"] = dict(
+        pass_rate=p, jax=pj, tol=round(tol, 4), within=abs(p - pj) <= tol,
+        n_speed_fails=res["n_speed_fails"],
+        n_orient_fails=res["n_orient_fails"],
+        n_nonfinite=res["n_nonfinite"])
+    suite_line(f"{tag} commands ({SUITE_TRIALS} envs)", secs, n,
+               **out["commands"])
+    if not out["commands"]["within"]:
+        raise AssertionError(f"{tag} commands: pass rate {p} is not within "
+                             f"{tol:.4f} of JAX's {pj}")
+
+    if tag == "mk4":
+        res, secs, n = count_launches(lambda: eval_suites.eval_missions(
+            eval_suites.playground_policy(exp),
+            eval_suites.BATTERY_MISSIONS, simrate=simrate))
+        steps = max(r["total"] for r in res.values())
+        check_counts(f"{tag} missions", n, want(steps, 1, hf=False))
+        ref = jax_sum["missions"]
+        out["missions"] = {m: dict(
+            success=r["success"], progress=r["progress"],
+            jax_success=bool(ref[m]["success"]),
+            jax_progress=int(ref[m]["progress"])) for m, r in res.items()}
+        left, right = res["90_left_1.4"], res["90_right_1.4"]
+        same = all(left[k] == right[k] for k in (
+            "success", "progress", "avg_pos_error", "avg_speed_error",
+            "avg_orient_error"))
+        suite_line(f"{tag} missions (5 envs, {steps} steps)", secs, n,
+                   missions=out["missions"], left_equals_right=same)
+        for m, r in out["missions"].items():
+            if r["success"] != r["jax_success"] or abs(
+                    r["progress"] - r["jax_progress"]) > 0.05 * max(
+                        r["jax_progress"], 1):
+                raise AssertionError(f"{tag} mission {m}: {r}")
+        if not same:
+            raise AssertionError("90_left_1.4 and 90_right_1.4 differ")
+
+    if tag == "mk5c":
+        mission, speed = CELL_5K
+        res, secs, n = count_launches(lambda: eval_suites.eval_5k_matrix(
+            policy_fn, env, missions=(mission,), mission_speeds=(speed,)))
+        steps = res["policy_steps"]
+        check_counts(f"{tag} 5k {mission}_{speed}", n,
+                     want(steps, 1, hf=True))
+        with open(os.path.join(JAX_BATTERY[tag], "eval_5k.pkl"), "rb") as f:
+            jax_5k = pickle.load(f)
+        mi = list(jax_5k["grid"]["missions"]).index(mission)
+        si = list(jax_5k["grid"]["mission_speeds"]).index(speed)
+        jax_cell = jax_5k["passed"][mi, si]
+        agree = float((res["passed"][0, 0] == jax_cell).mean())
+        out["5k_cell"] = dict(
+            envs=CELL_5K_ENVS, steps=steps,
+            pass_rate=float(res["pass_rate"]),
+            jax_cell_pass_rate=float(jax_cell.mean()),
+            jax_by_mission=jax_sum["5k"]["by_mission"][mission],
+            trials_agreeing_with_jax=round(agree, 4),
+            by_terrain={k: round(float(v), 3)
+                        for k, v in res["by_terrain"].items()},
+            n_nonfinite=res["n_nonfinite"])
+        suite_line(f"{tag} 5k {mission}_{speed} ({CELL_5K_ENVS} envs)",
+                   secs, n, **out["5k_cell"])
+        if not abs(out["5k_cell"]["pass_rate"]
+                   - out["5k_cell"]["jax_cell_pass_rate"]) <= 0.05:
+            raise AssertionError(f"{tag} 5k cell: {out['5k_cell']}")
+    return out
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -1455,6 +1779,11 @@ def main() -> int:
     t0 = time.time()
     k1h = check_k1(gen, dev, build_log, terrain=0.06)
     phase("K1-hfield", t0)
+    # K1 at the eval suites' fleets, timed while the profiler's traces are
+    # whole: later in the run, after the training and off-policy phases,
+    # traces of 10 launches held 2 and then none (PERF.md section 6)
+    t0 = time.time()
+    phase("K1-suites", t0, **check_k1_suites(gen, dev))
 
     t0 = time.time()
     reset_diff, qvel_diff, qpos_diff, ratio = check_parity(dev)
@@ -1523,6 +1852,12 @@ def main() -> int:
     phase("ddpg", t0, **ddpg_walker())
     t0 = time.time()
     phase("ars", t0, **ars_walker())
+
+    # the eval battery's suites
+    for tag, ckpt in (("mk4", CKPT), ("mk5c", TERRAIN_CKPTS["mk5c"][0])):
+        t0 = time.time()
+        suites = run_suites(tag, ckpt)
+        phase(f"suites_{tag}", t0, suites=json.dumps(suites))
 
     record = {"kernels": [
         {"name": "K1 pd_substep", "route": "cuda",

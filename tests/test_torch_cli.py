@@ -1,10 +1,11 @@
-"""`python -m apex_tpu_torch {ppo,td3_sync,td3_async,ddpg,ars}` against
-`apex.py`: the same flags give the same namespace, hence the same
+"""`python -m apex_tpu_torch {ppo,td3_sync,td3_async,ddpg,ars,eval}`
+against `apex.py`: the same flags give the same namespace, hence the same
 run-directory name (the hash of the arguments) and the same
 experiment.pkl; a run of the mk5c reward configuration without dyn-rand
 writes a run directory that the JAX package loads; the learners beyond
 PPO run on the CPU when asked and name their run directories as apex.py
-does; the configurations not ported yet raise."""
+does; the configurations not ported yet raise; and eval's suites, dumps,
+gait recording and scripted drive run on the CPU at a tiny size."""
 import pickle
 import sys
 
@@ -28,6 +29,8 @@ from apex_tpu_torch.agents import td3 as port_td3
 from apex_tpu_torch.runtime import log
 from apex_tpu_torch.runtime.evaluate import load_experiment
 from chip_smoke import TD3_KEYS
+
+CKPT = "curves/cassie_mk4_hardened_ckpt"
 
 MK4_HARDENED = ["ppo", "--dyn_random", "--mirror", "--num_procs", "1024",
                 "--num_steps", "32768", "--max_traj_len", "300",
@@ -150,3 +153,156 @@ def test_learner_run_dirs_are_named_as_apex_py(argv, tmp_path):
 def test_unported_learners_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError):
         port_main([*argv, "--device", "cpu", "--logdir", str(tmp_path)])
+
+
+# apex.py eval's flags, each suite and the dump, gait and drive options
+EVAL_ARGVS = {
+    "commands": ["--suite", "commands"],
+    "perturb": ["--suite", "perturb", "--pdf", "perturb.pdf"],
+    "mission": ["--suite", "mission", "--mission", "straight_1.4"],
+    "sensitivity": ["--suite", "sensitivity"],
+    "5k": ["--suite", "5k", "--pdf", "5k.pdf"],
+    "compare": ["--suite", "compare", "--compare_to", "other_run",
+                "--n_episodes", "8", "--traj_len", "100"],
+    "out_gait": ["--out", "traj.npz", "--gait", "gait.npz", "--speed",
+                 "0.5"],
+    "drive": ["--drive", "script.json", "--drive_steps", "50"]}
+
+
+@pytest.mark.parametrize("flags", list(EVAL_ARGVS.values()),
+                         ids=list(EVAL_ARGVS))
+def test_eval_namespace_matches_apex_py(flags, monkeypatch):
+    """`python -m apex_tpu_torch eval` parses apex.py eval's flags to its
+    namespace: the same keys in the same order and the same values, beside
+    the port's own --seed, --physics and --device."""
+    import argparse
+
+    class Parsed(Exception):
+        pass
+
+    got = []
+    parse = argparse.ArgumentParser.parse_args
+
+    def capture(self, *args, **kwargs):
+        got.append(vars(parse(self, *args, **kwargs)))
+        raise Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    argv = ["eval", "--path", "run_dir", *flags]
+    monkeypatch.setattr(sys, "argv", ["apex.py", *argv])
+    with pytest.raises(Parsed):
+        apex.main()
+    with pytest.raises(Parsed):
+        port_main(argv)
+    theirs, ours = got
+    port_only = {"cmd": "eval", "seed": 42, "physics": None,
+                 "device": "cuda"}
+    assert {k: ours.pop(k) for k in port_only} == port_only
+    assert list(ours) == list(theirs)
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("suite", ["commands", "mission"])
+def test_eval_suites_run_from_the_cli(suite, monkeypatch, capsys):
+    """`eval --suite commands` and `--suite mission` on the CPU at a tiny
+    size (the suites' sizes cut: 2 trials of one 2-step command; 2 steps
+    of the mission), printing the suite's figures."""
+    import functools
+
+    from apex_tpu_torch.runtime import eval_suites
+
+    small = {"commands": dict(n_trials=2, n_commands=1,
+                              steps_per_command=2),
+             "mission": dict(max_steps=2)}[suite]
+    name = {"commands": "eval_commands", "mission": "eval_mission"}[suite]
+    monkeypatch.setattr(eval_suites, name, functools.partial(
+        getattr(eval_suites, name), **small))
+    assert port_main(["eval", "--path", CKPT, "--suite", suite,
+                      "--device", "cpu"]) == 0
+    printed = capsys.readouterr().out
+    assert ("'pass_rate'" if suite == "commands" else "'progress': 2") \
+        in printed, printed
+
+
+def test_eval_out_gait_and_drive_from_the_cli(tmp_path, monkeypatch):
+    """`eval --out --gait` writes the trajectory dump and the gait
+    recording (dump_gait cut to 2 steps), and `eval --drive` runs a key
+    script and writes its telemetry, on the CPU."""
+    import functools
+    import json
+
+    from apex_tpu_torch.runtime import evaluate
+
+    monkeypatch.setattr(evaluate, "dump_gait", functools.partial(
+        evaluate.dump_gait, n_steps=2))
+    out, gait = tmp_path / "traj.npz", tmp_path / "gait.npz"
+    assert port_main(["eval", "--path", CKPT, "--n_episodes", "2",
+                      "--traj_len", "2", "--out", str(out), "--gait",
+                      str(gait), "--device", "cpu"]) == 0
+    with np.load(out) as f:
+        assert f["obs"].shape == (2, 2, 50) and f["action"].shape == (
+            2, 2, 10)
+    with np.load(gait) as f:
+        assert f["qpos"].shape == (2, 35)
+    script = tmp_path / "drive.json"
+    script.write_text(json.dumps([[0, "w"], [1, "p"]]))
+    tele = tmp_path / "drive.npz"
+    assert port_main(["eval", "--path", CKPT, "--drive", str(script),
+                      "--drive_steps", "2", "--out", str(tele),
+                      "--device", "cpu"]) == 0
+    with np.load(tele) as f:
+        np.testing.assert_allclose(f["speed"], [0.1, 0.1], atol=1e-6)
+        assert f["qpos"].shape == (2, 35)
+
+
+def test_scripted_drive_keys():
+    """tests/test_eval_suites.py::test_scripted_drive on the port (its env
+    at 3 substeps per step): the keys land at their steps and the
+    telemetry records them -- two 'w' at step 2 give 0.2 m/s, 'k' turns
+    the heading by 0.1, 'j' raises phase_add to 1.1, 'r' resets it to 1;
+    and '3' rebuilds the clock for the aerial stance mode."""
+    import dataclasses
+
+    from apex_tpu_torch.runtime import drive
+
+    exp = load_experiment(CKPT, device="cpu")
+    env = dataclasses.replace(exp.env, simrate=3)
+    script = [[2, "w"], [2, "w"], [4, "k"], [5, "j"], [6, "p"], [8, "r"]]
+    res = drive.drive_policy(exp.actor, exp.norm, env, script, n_steps=10,
+                             seed=0, start_speed=0.0)
+    assert res["qpos"].shape == (10, 35)
+    np.testing.assert_allclose(res["speed"][0], 0.0, atol=1e-6)
+    np.testing.assert_allclose(res["speed"][2:7], 0.2, atol=1e-6)
+    assert res["orient_add"][4] > 0.09
+    np.testing.assert_allclose(res["phase_add"][5:7], 1.1, atol=1e-6)
+    np.testing.assert_allclose(res["phase_add"][8:], 1.0, atol=1e-6)
+    state, _ = env.reset(env.sample_reset_noise(torch.Generator(), 1))
+    aerial = drive._apply_key(env, state, "3")
+    np.testing.assert_array_equal(aerial.stance_mode[:, 0].numpy(),
+                                  [0.0, 1.0, 0.0])
+    assert not torch.equal(aerial.clock.y, state.clock.y)
+    pushed = drive._apply_key(env, state, "p")
+    assert float(pushed.params.ext_force[5, 0]) == 100.0
+    with pytest.raises(ValueError):
+        drive._apply_key(env, state, "q")
+
+
+def test_record_policy_channels(tmp_path):
+    """record_policy writes the control loop's channels of one rollout
+    (3 steps): the commanded targets, the measured motor positions (the
+    qpos rows of the motors), torques, forces and foot positions."""
+    from apex_tpu_torch.physics.cassie_sim import MOTOR_QPOS_IDX
+    from apex_tpu_torch.runtime.evaluate import record_policy
+
+    recs = record_policy(CKPT, out=str(tmp_path / "rec.npz"), n_steps=3,
+                         device="cpu")
+    for k, shape in (("pd_target", (3, 10)), ("motor_pos", (3, 10)),
+                     ("torque", (3, 10)), ("grf", (3, 2)),
+                     ("foot_pos", (3, 2, 3)), ("qpos", (3, 35)),
+                     ("action", (3, 10)), ("reward", (3,))):
+        assert recs[k].shape == shape, k
+        assert np.isfinite(recs[k]).all(), k
+    np.testing.assert_array_equal(recs["motor_pos"],
+                                  recs["qpos"][:, MOTOR_QPOS_IDX])
+    with np.load(tmp_path / "rec.npz") as f:
+        assert set(f) == set(recs)

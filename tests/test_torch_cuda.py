@@ -14,9 +14,10 @@ from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.envs.walker2d import walker_model
-from chip_smoke import (fk_tree_inputs, fk_tree_model, k1_inputs,
-                        k1_standing_inputs, random_spd, walker_inputs,
-                        walker_step_vs_plain)
+from chip_smoke import (CELL_5K_ENVS, SUITE_TRIALS, fk_tree_inputs,
+                        fk_tree_model, k1_5k_terrain_inputs, k1_at_scale,
+                        k1_inputs, k1_ramp_inputs, k1_standing_inputs,
+                        random_spd, walker_inputs, walker_step_vs_plain)
 
 
 @pytest.fixture
@@ -354,3 +355,116 @@ def test_substep_kernel_hfield_refuses_a_bad_table(cuda):
     with pytest.raises(ValueError):                      # flat misc rows
         fleet_kernel.pd_substep(m, params, qpos, qvel, rows,
                                 (static[0], static[1][:14], static[2]))
+
+
+@pytest.mark.parametrize("case, B", [
+    ("flat", SUITE_TRIALS), ("flat", CELL_5K_ENVS),
+    ("terrain", SUITE_TRIALS), ("5k_tables", CELL_5K_ENVS)])
+def test_substep_kernel_at_the_suite_fleets(cuda, case, B):
+    """K1 at the eval suites' fleets (10,000 envs for the command suite,
+    3,971 for a 5k cell): a sample of envs launched alone gives the full
+    launch's bits, and holds against the plain version
+    (`chip_smoke.k1_at_scale`). The flat kernel at both; the heightfield
+    build with the lookup on at 10,000 on `add_terrain`'s terrain (the
+    mk5c command suite) and at 3,971 on the 5k noise and hill tables
+    (`chip_smoke.k1_5k_terrain_inputs`)."""
+    gen = torch.Generator()
+    gen.manual_seed(B)
+    if case == "flat":
+        m, inputs = cassie_model(), k1_standing_inputs(B, gen, cuda)
+    elif case == "terrain":
+        m = cassie_model(enable_hfield=True)
+        inputs = k1_standing_inputs(B, gen, cuda, terrain=0.03)
+    else:
+        m = cassie_model(enable_hfield=True)
+        inputs = k1_5k_terrain_inputs(B, gen, cuda)
+    _, _, full = k1_at_scale(m, *inputs, gen, f"K1 {case} B={B}")
+    assert all(torch.isfinite(x).all() for x in full)
+
+
+def test_substep_kernel_hfield_ramps(cuda):
+    """The 5k ramp cells through K1's heightfield build (a table in every
+    env, hfield_active 0, floors tilted 3 degrees four ways): against the
+    plain version on a sample, and bit for bit the flat kernel's."""
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    params, qpos, qvel, rows = k1_ramp_inputs(CELL_5K_ENVS, gen, cuda)
+    _, _, got = k1_at_scale(cassie_model(enable_hfield=True), params, qpos,
+                            qvel, rows, gen, "K1-hfield ramps")
+    flat = fleet_kernel.pd_substep(cassie_model(), params, qpos, qvel, rows)
+    for a, b in zip(got, flat):
+        assert torch.equal(a, b)
+
+
+def test_suite_step_on_the_card_matches_the_fleet_tier(cuda):
+    """One step of the 5k suite (update_speed_state, the heading, then
+    step_basic; the mk5c configuration: heightfield model, 60 substeps)
+    on 64 envs over the 5k terrains, frictions and foot masses, through
+    K1 against the same step on the fleet tier (K2 + K3), on the card.
+    Sixty substeps amplify f32 rounding unevenly per row, so the two are
+    held to four times the fleet tier's own spread when its input state
+    changes by random factors 1 +- 1e-7, per row."""
+    import dataclasses
+
+    from apex_tpu_torch.envs.cassie import CassieEnv
+    from apex_tpu_torch.runtime import eval_suites
+
+    envs = {tier: CassieEnv(device="cuda", terrain="noise", simrate=60,
+                            dynamics_randomization=False,
+                            reward="5k_speed_reward", min_speed=0.0,
+                            max_speed=3.0, pd_tier=tier)
+            for tier in ("megakernel", "fleet")}
+    B = 64
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    names = eval_suites.DEFAULT_5K_TERRAINS
+    terr = [eval_suites._terrain_config(names[b % len(names)])
+            for b in range(B)]
+    state, obs = envs["fleet"].reset_for_test(B)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32), device=cuda)
+    hf = f32(np.stack([t[1] if t[0] else np.zeros((32, 32)) for t in terr]))
+    params = dataclasses.replace(
+        state.params,
+        friction=f32(0.8 + 0.4 * torch.rand(B, generator=gen).numpy()),
+        floor_quat=euler2quat_rows([t[2] for t in terr], cuda),
+        hfield=hf.permute(1, 2, 0).contiguous(),
+        hfield_active=f32([float(t[0]) for t in terr]))
+    state = dataclasses.replace(state, params=params)
+    action = 0.1 * torch.randn(B, 10, generator=gen).to(cuda)
+
+    def step(env, st):
+        st = env.update_speed_state(st, torch.tensor(0.9, device=cuda))
+        st = dataclasses.replace(st, orient_add=torch.full((B,), 0.3,
+                                                           device=cuda))
+        return env.step_basic(st, action)
+
+    got, _ = step(envs["megakernel"], state)
+    ref, _ = step(envs["fleet"], state)
+    spread_q = torch.zeros_like(ref.phys.qpos[:, :1])
+    spread_v = torch.zeros_like(ref.phys.qvel[:, :1])
+    for _ in range(4):
+        jitter = lambda x: x * (1.0 + 1e-7 * (torch.randint(
+            0, 2, x.shape, generator=gen) * 2.0 - 1.0).to(cuda))
+        st = dataclasses.replace(state, phys=dataclasses.replace(
+            state.phys, qpos=jitter(state.phys.qpos),
+            qvel=jitter(state.phys.qvel)))
+        alt, _ = step(envs["fleet"], st)
+        spread_q = torch.maximum(spread_q, (alt.phys.qpos - ref.phys.qpos)
+                                 .abs().amax(1, keepdim=True))
+        spread_v = torch.maximum(spread_v, (alt.phys.qvel - ref.phys.qvel)
+                                 .abs().amax(1, keepdim=True))
+    assert torch.isfinite(got.phys.qpos).all()
+    assert ((got.phys.qpos - ref.phys.qpos).abs()
+            <= 4 * spread_q + 1e-6).all()
+    assert ((got.phys.qvel - ref.phys.qvel).abs()
+            <= 4 * spread_v + 1e-6).all()
+    assert torch.equal(got.phase, ref.phase)
+
+
+def euler2quat_rows(tilts, device):
+    """(4, B) floor quaternions from per-env (y_pitch, x_roll) tilts."""
+    from apex_tpu_torch.utils.quaternion import euler2quat
+
+    y = torch.tensor([t[0] for t in tilts], dtype=torch.float32)
+    x = torch.tensor([t[1] for t in tilts], dtype=torch.float32)
+    return euler2quat(z=torch.zeros_like(y), y=y, x=x).to(device)
