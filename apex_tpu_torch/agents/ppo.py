@@ -137,6 +137,14 @@ class PPO:
             f32 = lambda m: torch.tensor(m, device=self.device)
             self.obs_mirror = f32(mirror_matrix(env.mirrored_obs))
             self.act_mirror = f32(mirror_matrix(env.mirrored_acts))
+            if self.obs_mirror.shape[0] != env.observation_size:
+                # the mirror table covers one frame of a history: JAX's
+                # loss fails on the same shapes at its first update
+                raise ValueError(
+                    f"the mirror loss needs the mirror table "
+                    f"({self.obs_mirror.shape[0]} entries) to cover the "
+                    f"observation ({env.observation_size}); with history "
+                    "> 0 it covers one frame only")
         else:
             self.obs_mirror = self.act_mirror = None
 
@@ -435,7 +443,9 @@ def run_experiment(args, device=None):
         command_profile=args.command_profile,
         input_profile=args.input_profile, learn_gains=args.learn_gains,
         dynamics_randomization=args.dyn_random, reward=args.reward,
-        history=args.history,
+        history=args.history, traj=getattr(args, "traj", "walking"),
+        no_delta=getattr(args, "no_delta", True),
+        ik_baseline=getattr(args, "ik_baseline", False),
         estimator=getattr(args, "estimator", "firmware"),
         min_speed=getattr(args, "min_speed", -0.3),
         max_speed=getattr(args, "max_speed", 4.0),

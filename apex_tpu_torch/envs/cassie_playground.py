@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.device import resolve_device
-from apex_tpu_torch.envs.base import Env
+from apex_tpu_torch.envs.base import Env, to_batch_first
 from apex_tpu_torch.envs.trajectory import CassieTrajectory, CommandTrajectory
 from apex_tpu_torch.physics.cassie_sim import (
     PD_TIERS,
@@ -220,3 +220,14 @@ class CassiePlayground(Env):
             return torch.ones_like(speed_error)
         return (0.2 * torch.exp(-speed_error) + 0.3 * torch.exp(-compos_error)
                 + 0.5 * torch.exp(-orient_error))
+
+    def checkpoint_leaves(self, state: PlaygroundState, obs: torch.Tensor):
+        """The JAX PlaygroundState's leaves (envs/cassie_playground.py:44),
+        batch-first."""
+        return [to_batch_first(x) for x in (
+            state.phys.qpos, state.phys.qvel, state.phys.qacc,
+            *(getattr(state.params, f.name)
+              for f in dataclasses.fields(state.params)),
+            state.phase, state.counter,
+            state.command_counter.to(torch.int32), state.time,
+            state.last_position, state.prev_action)]

@@ -101,13 +101,17 @@ class PDCommand:
     ff_torque: torch.Tensor
 
     @staticmethod
-    def from_targets(p_target: torch.Tensor) -> "PDCommand":
+    def from_targets(p_target: torch.Tensor, p_gain: torch.Tensor = None,
+                     d_gain: torch.Tensor = None) -> "PDCommand":
+        """PD targets (10, B) with per-env gains (10, B), or the default
+        gains where none are given (cassie_sim.py:115-123)."""
         f32 = lambda x: const(x, p_target.device, p_target.dtype)
+        default = lambda g: f32(g)[:, None].expand_as(p_target)
         return PDCommand(
             p_target=p_target,
             d_target=torch.zeros_like(p_target),
-            p_gain=f32(DEFAULT_P_GAIN)[:, None].expand_as(p_target),
-            d_gain=f32(DEFAULT_D_GAIN)[:, None].expand_as(p_target),
+            p_gain=default(DEFAULT_P_GAIN) if p_gain is None else p_gain,
+            d_gain=default(DEFAULT_D_GAIN) if d_gain is None else d_gain,
             ff_torque=torch.zeros_like(p_target))
 
 

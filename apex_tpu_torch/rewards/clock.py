@@ -1,15 +1,19 @@
-"""Periodic-gait clocks and the early_clock reward, batch-last.
+"""Periodic-gait clocks and the clock-based rewards, batch-last.
 
-Port of the parts of `apex_tpu/rewards/clock.py` the default Cassie-v0
-config runs: the per-episode clock construction (reference
-cassie/phase_function.py:5-136, PCHIP splines over swing/stance segments,
-3-cycle tiling), `speed_to_durations` and `early_clock_reward` (reference
-cassie/rewards/clock_rewards.py:119-223). A clock is x (24, B), y and d
-(4, 24, B), phaselen (B,); channel order in y: [l_frc, l_vel, r_frc, r_vel].
+Port of `apex_tpu/rewards/clock.py`: the per-episode clock construction
+(reference cassie/phase_function.py:5-136, PCHIP splines over swing/stance
+segments, 3-cycle tiling), the precomputed clocks of
+`data/reward_clocks.npz` (`load_reward_clock`), `speed_to_durations`, and
+the clock rewards of reference cassie/rewards/clock_rewards.py (`clock`,
+`early_clock`, `no_speed_clock`, `max_vel_clock`, `aslip_clock`;
+`REWARD_FUNCS`). A clock is x (n, B), y and d (4, n, B), phaselen (B,),
+n = 24 for a built clock and 512 for a loaded one; channel order in y:
+[l_frc, l_vel, r_frc, r_vel].
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -98,6 +102,32 @@ def build_clock(swing_duration: torch.Tensor, stance_duration: torch.Tensor,
                      phaselen=total)
 
 
+REWARD_CLOCKS = (Path(__file__).resolve().parent.parent / "data"
+                 / "reward_clocks.npz")
+
+
+def load_reward_clock(name: str, batch: int, device,
+                      phaselen: float = 32.0, speed_idx: int = None
+                      ) -> GaitClock:
+    """One of the reference's precomputed reward clocks (reference
+    cassie/rewards/reward_clock_funcs/<name>.pkl, as the dense tables of
+    `data/reward_clocks.npz`) over its 512-point grid, for a fleet of
+    `batch` envs (clock.py:104-126). speed_idx picks a speed of the
+    per-speed aslip libraries (the first by default)."""
+    with np.load(REWARD_CLOCKS) as f:
+        lo, hi = float(f["__grid_lo"]), float(f["__grid_hi"])
+        tab = f[name]
+    if tab.ndim == 3:
+        tab = tab[0 if speed_idx is None else speed_idx]
+    x = torch.as_tensor(np.linspace(lo, hi, tab.shape[-1]).astype(
+        np.float32), device=device)[:, None]
+    y = torch.as_tensor(np.asarray(tab, np.float32), device=device)[..., None]
+    d = pchip_derivatives(x, y)
+    return GaitClock(x=x.expand(-1, batch), y=y.expand(-1, -1, batch),
+                     d=d.expand(-1, -1, batch),
+                     phaselen=torch.full((batch,), phaselen, device=device))
+
+
 def speed_to_durations(speed: torch.Tensor):
     """Swing/stance durations from commanded speed (cassie.py:556-558)."""
     total_duration = (0.9 - 0.25 / 3.0 * torch.abs(speed)) / 2.0
@@ -107,9 +137,9 @@ def speed_to_durations(speed: torch.Tensor):
 
 
 class RewardInputs(NamedTuple):
-    """The per-policy-step quantities the early_clock reward reads
-    (the JAX RewardInputs carries more, for the other clock rewards),
-    batch-last."""
+    """The per-policy-step quantities the clock rewards read, batch-last.
+    early_clock reads the first ten; the fields after them default to None
+    for callers that run only it."""
     qpos: torch.Tensor                # (35, B) post-step
     qvel: torch.Tensor                # (32, B)
     l_foot_frc: torch.Tensor          # (B,) substep-mean z force
@@ -120,6 +150,93 @@ class RewardInputs(NamedTuple):
     r_foot_orient_cost: torch.Tensor
     speed: torch.Tensor               # (B,)
     phase: torch.Tensor               # (B,)
+    pelvis_rot_vel: torch.Tensor = None   # (3, B)
+    pelvis_accel: torch.Tensor = None     # (3, B)
+    motor_torque: torch.Tensor = None     # (10, B)
+    prev_torque: torch.Tensor = None      # (10, B)
+    action: torch.Tensor = None           # (10, B)
+    prev_action: torch.Tensor = None      # (10, B)
+    # estimator (pelvis-frame) foot orientations, read by aslip_clock
+    # (clock_rewards.py:358-363)
+    est_lfoot_orient: torch.Tensor = None  # (4, B)
+    est_rfoot_orient: torch.Tensor = None
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the leading axis."""
+    return torch.sqrt(torch.sum(v * v, dim=0))
+
+
+def _scores(clock: GaitClock, ri: RewardInputs, des_frc: float,
+            des_vel: float):
+    """The clock's (l_frc, l_vel, r_frc, r_vel) at ri.phase, and the
+    normalized forces and foot speeds (n_l_frc, n_r_frc, n_l_vel,
+    n_r_vel)."""
+    c = clock.eval(ri.phase)
+    n = (torch.clamp(ri.l_foot_frc, max=des_frc) / des_frc,
+         torch.clamp(ri.r_foot_frc, max=des_frc) / des_frc,
+         torch.clamp(_norm(ri.l_foot_vel), max=des_vel) / des_vel,
+         torch.clamp(_norm(ri.r_foot_vel), max=des_vel) / des_vel)
+    return c, n
+
+
+def _deadzone(x: torch.Tensor, zone) -> torch.Tensor:
+    return torch.where(x < zone, 0.0, x)
+
+
+def _pelvis_motion(ri: RewardInputs, acc: bool) -> torch.Tensor:
+    """Lateral and height deviation outside their dead zones, and with
+    `acc` a quarter of the pelvis rotational velocity and acceleration."""
+    motion = (_deadzone(torch.abs(ri.qpos[1]), 0.05)
+              + _deadzone(torch.abs(ri.qpos[2] - 0.9),
+                          0.05 + 0.05 * ri.speed))
+    if acc:
+        motion = motion + 0.25 * (torch.abs(ri.pelvis_rot_vel).sum(dim=0)
+                                  + torch.abs(ri.pelvis_accel).sum(dim=0))
+    return motion
+
+
+def _tan_scores(clock, ri, des_frc, des_vel):
+    """The tan-form clock scores (frc_score, vel_score)."""
+    (l_frc_c, l_vel_c, r_frc_c, r_vel_c), (nlf, nrf, nlv, nrv) = _scores(
+        clock, ri, des_frc, des_vel)
+    q = np.pi / 4.0
+    return (torch.tan(q * l_frc_c * nlf) + torch.tan(q * r_frc_c * nrf),
+            torch.tan(q * l_vel_c * nlv) + torch.tan(q * r_vel_c * nrv))
+
+
+def _tanh_scores(clock, ri, des_frc, des_vel):
+    """The tanh-form clock scores (frc_score, vel_score)."""
+    (l_frc_c, l_vel_c, r_frc_c, r_vel_c), (nlf, nrf, nlv, nrv) = _scores(
+        clock, ri, des_frc, des_vel)
+    return (torch.tanh(l_frc_c * nlf) + torch.tanh(r_frc_c * nrf),
+            torch.tanh(l_vel_c * nlv) + torch.tanh(r_vel_c * nrv))
+
+
+def _effort_penalties(ri: RewardInputs):
+    """(hip roll, torque change, action change) penalties of the tan-form
+    rewards. The reference indexes qvel[6] and qvel[13] (clock_rewards.py:
+    74), qvel[13] being the left shin; kept for parity."""
+    return (torch.abs(ri.qvel[6]) + torch.abs(ri.qvel[13]),
+            0.25 * torch.abs(ri.prev_torque - ri.motor_torque).mean(dim=0),
+            5.0 * torch.abs(ri.prev_action - ri.action).mean(dim=0))
+
+
+def clock_reward(clock: GaitClock, ri: RewardInputs) -> torch.Tensor:
+    """Reference clock_reward (clock_rewards.py:6-110)."""
+    frc_score, vel_score = _tan_scores(clock, ri, 250.0, 2.0)
+    com_orient_error = 10.0 * (1.0 - ri.qpos[3] ** 2)
+    foot_orient_error = 10.0 * (ri.l_foot_orient_cost + ri.r_foot_orient_cost)
+    com_vel_error = torch.abs(ri.qvel[0] - ri.speed)
+    hip_roll, torque, act = _effort_penalties(ri)
+    return (0.200 * frc_score
+            + 0.200 * vel_score
+            + 0.200 * torch.exp(-(com_orient_error + foot_orient_error))
+            + 0.150 * torch.exp(-_pelvis_motion(ri, acc=True))
+            + 0.150 * torch.exp(-com_vel_error)
+            + 0.050 * torch.exp(-hip_roll)
+            + 0.025 * torch.exp(-torque)
+            + 0.025 * torch.exp(-act))
 
 
 def early_clock_reward(clock: GaitClock, ri: RewardInputs) -> torch.Tensor:
@@ -152,3 +269,69 @@ def early_clock_reward(clock: GaitClock, ri: RewardInputs) -> torch.Tensor:
             + 0.200 * torch.exp(-com_vel_error)
             + 0.100 * torch.exp(-(com_orient_error + foot_orient_error))
             + 0.100 * torch.exp(-pelvis_motion))
+
+
+def no_speed_clock_reward(clock: GaitClock, ri: RewardInputs
+                          ) -> torch.Tensor:
+    """Reference no_speed_clock_reward (clock_rewards.py:225-333): tan-form
+    clock scores and no speed-matching term."""
+    frc_score, vel_score = _tan_scores(clock, ri, 250.0, 3.0)
+    com_orient_error = 10.0 * (1.0 - ri.qpos[3] ** 2)
+    foot_orient_error = 10.0 * (ri.l_foot_orient_cost + ri.r_foot_orient_cost)
+    hip_roll, torque, act = _effort_penalties(ri)
+    return (0.250 * frc_score
+            + 0.250 * vel_score
+            + 0.225 * torch.exp(-(com_orient_error + foot_orient_error))
+            + 0.175 * torch.exp(-_pelvis_motion(ri, acc=True))
+            + 0.050 * torch.exp(-hip_roll)
+            + 0.025 * torch.exp(-torque)
+            + 0.025 * torch.exp(-act))
+
+
+def _straight_height(ri: RewardInputs) -> torch.Tensor:
+    """Lateral deviation outside 0.05 m plus the height's distance from
+    1.0 m outside 0.2 m (max_vel and aslip clocks)."""
+    return (_deadzone(torch.abs(ri.qpos[1]), 0.05)
+            + _deadzone(torch.abs(ri.qpos[2] - 1.0), 0.2))
+
+
+def max_vel_clock_reward(clock: GaitClock, ri: RewardInputs
+                         ) -> torch.Tensor:
+    """Reference max_vel_clock_reward (clock_rewards.py:418-): raw forward
+    speed (qvel[0] / 3) in place of speed matching, tanh clock scores at
+    400 N, 15x com orientation."""
+    frc_score, vel_score = _tanh_scores(clock, ri, 400.0, 3.0)
+    com_orient_error = 15.0 * (1.0 - ri.qpos[3] ** 2)
+    foot_orient_error = 10.0 * (ri.l_foot_orient_cost + ri.r_foot_orient_cost)
+    return (0.1 * torch.exp(-com_orient_error)
+            + 0.1 * torch.exp(-foot_orient_error)
+            + 0.1 * torch.exp(-_straight_height(ri))
+            + 0.2 * frc_score
+            + 0.2 * vel_score
+            + 0.3 * (ri.qvel[0] / 3.0))
+
+
+def aslip_clock_reward(clock: GaitClock, ri: RewardInputs) -> torch.Tensor:
+    """Reference aslip_clock_reward (clock_rewards.py:325-433): tanh scores
+    at 400 N, the foot-orientation error from the estimator's foot
+    quaternions against identity, height 1.0 m with a 0.2 m dead zone."""
+    frc_score, vel_score = _tanh_scores(clock, ri, 400.0, 3.0)
+    com_orient_error = 10.0 * (1.0 - ri.qpos[3] ** 2)
+    foot_orient_error = 10.0 * ((1.0 - ri.est_lfoot_orient[0] ** 2)
+                                + (1.0 - ri.est_rfoot_orient[0] ** 2))
+    com_vel_error = torch.abs(ri.qvel[0] - ri.speed)
+    return (0.1 * torch.exp(-com_orient_error)
+            + 0.1 * torch.exp(-foot_orient_error)
+            + 0.2 * torch.exp(-com_vel_error)
+            + 0.1 * torch.exp(-_straight_height(ri))
+            + 0.25 * frc_score
+            + 0.25 * vel_score)
+
+
+REWARD_FUNCS = {
+    "clock": clock_reward,
+    "early_clock": early_clock_reward,
+    "no_speed_clock": no_speed_clock_reward,
+    "max_vel_clock": max_vel_clock_reward,
+    "aslip_clock": aslip_clock_reward,
+}

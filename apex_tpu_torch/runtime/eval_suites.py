@@ -14,7 +14,7 @@ fleet. Randomness enters as explicit draws: the env's reset and step draws
 Under the height criterion a fallen robot keeps stepping, as in the
 reference; a state that goes non-finite fails no trial there (NaN never
 compares below 0.4), in JAX and here alike, so each suite counts those
-envs (`n_nonfinite`).
+envs (`n_nonfinite`) and says which they are (`nonfinite_trials`).
 
 A policy is a function obs (B, obs_dim) -> action (B, act_dim).
 """
@@ -200,6 +200,7 @@ def eval_commands(env, policy_fn: Callable, n_trials: int = 64,
     out.update(_command_failures(passed, fail_idx, speeds.cpu().numpy(),
                                  orients.cpu().numpy(), max_speed))
     out["n_nonfinite"] = int(nonfinite.sum())
+    out["nonfinite_trials"] = np.flatnonzero(nonfinite.cpu().numpy())
     return out
 
 
@@ -452,7 +453,7 @@ def eval_5k_matrix(policy_fn: Callable, env,
     foot_ids = [env.model.body_id("left-foot"),
                 env.model.body_id("right-foot")]
 
-    nonfinite = 0
+    nonfinite = []        # (mission, speed, terrain, friction, foot mass)
     steps_run = 0
     for mi, mission in enumerate(missions):
         for si, speed in enumerate(mission_speeds):
@@ -483,7 +484,10 @@ def eval_5k_matrix(policy_fn: Callable, env,
                 bad |= ~torch.isfinite(state.phys.qpos).all(dim=0)
             cell = (~fallen).cpu().numpy()
             passed[mi, si] = cell.reshape(n_t, len(frictions), n_fm)
-            nonfinite += int(bad.sum())
+            nonfinite += [(mission, speed, terrains[b // per],
+                           frictions[b // n_fm % len(frictions)],
+                           foot_mass_scales[b % n_fm])
+                          for b in np.flatnonzero(bad.cpu().numpy())]
             steps_run += n
             if on_cell is not None:
                 on_cell(mission, speed, passed[mi, si], time.time() - t0)
@@ -503,7 +507,8 @@ def eval_5k_matrix(policy_fn: Callable, env,
         "by_terrain": axis_rate(terrains, 2),
         "by_friction": axis_rate(frictions, 3),
         "by_foot_mass": axis_rate(foot_mass_scales, 4),
-        "n_nonfinite": nonfinite,
+        "n_nonfinite": len(nonfinite),
+        "nonfinite_trials": nonfinite,
         "policy_steps": steps_run,
     }
     # the subset the reference artifact covers (flat + noise1)

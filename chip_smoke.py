@@ -1,16 +1,19 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: `python3 chip_smoke.py`.
 
-Drives the port's main paths -- the deterministic evaluation of the
-JAX-trained Cassie policy `curves/cassie_mk4_hardened_ckpt` (64 envs, 300
+Drives the port's main paths -- the deterministic evaluations of the
+JAX-trained Cassie policies (the switch checkpoints main, main2, mk3,
+mk5a, mk5b and cassie_traj, see eval_switches) and of
+`curves/cassie_mk4_hardened_ckpt` (64 envs, 300
 policy steps of 50 PD substeps, dyn-rand, firmware estimator, early_clock
 reward) through the whole-substep kernel K1, the same evaluation through
 the fleet tier at reduced depth, the evaluations of the two terrain
 checkpoints through K1's heightfield branch (`curves/cassie_mk5c_ckpt`:
 noise terrain, 5k_speed_reward, dyn-rand off, 60 substeps;
 `curves/cassie_mk4_terrain_ckpt`: mk4_hardened on noise terrain), and two
-PPO iterations of `python -m apex_tpu_torch ppo` at the training fleet, and
-Walker2d through the fleet tier (K2 + K3) under PPO, TD3, DDPG and ARS and
-TD3 on Cassie through K1 --
+PPO iterations of `python -m apex_tpu_torch ppo` at the training fleet
+and one each on three new env configurations, and Walker2d through the
+fleet tier (K2 + K3) under PPO, TD3, DDPG and ARS and TD3 on Cassie
+through K1 --
 after building the hand-written CUDA kernels from `apex_tpu_torch/csrc/`
 and holding each against its plain PyTorch version on the card. Phases,
 each printed with its seconds as it ends:
@@ -45,22 +48,40 @@ each printed with its seconds as it ends:
              for bit against the flat kernel; kernel ms for each (run
              before the long phases: later in a run the profiler's traces
              lost launches)
+  K1-gains   K1 against its plain version with per-env PD gains (the
+             defaults plus N(0, 40^2) and N(0, 8^2): negative d gains),
+             as learned-gain policies hand them over, at B = 64 and 1024
   parity     a reset and one fleet substep on the GPU against the CPU;
              a GPU env step gives finite values of the right shapes
   eval       the 64-env, 300-step evaluation on the megakernel tier for
              seeds 42, 0 and 1; launch counts of K1, K2 and K3 must equal
-             what the code path implies, and the returns those of the
-             flat kernel before the heightfield branch
+             what the code path implies
   eval_fleet the same evaluation on the fleet tier, 30 steps, seed 42
   eval_mk5c, eval_mk4_terrain
              the terrain checkpoints' 64-env, 300-step evaluations on the
              megakernel tier (seeds 42, 0, 1), every K1 launch a
              heightfield one; eval_fleet_mk5c: mk5c on the fleet tier,
-             30 steps
+             30 steps; the returns of eval, eval_mk5c and eval_mk4_terrain
+             bit for bit those of earlier runs
+  eval_switches
+             the 64-env, 300-step evaluation (seed 42, megakernel tier) of
+             the checkpoints the CassieEnv switches unlock: main, main2 and
+             mk3 (exact estimator), mk5a (heading curriculum,
+             speed_phase_add), mk5b (5k_speed_reward, 60 substeps) and
+             cassie_traj (CassieTraj-v0), counted, on the port's draws and
+             on JAX's (`jax_draws`), the latter held to JAX's return on
+             the CPU within 1.8 %, or within JAX's own seed spread where
+             that is wider
   step_1024  ms per policy step at the training fleet (1024 envs), and
              CUDA launches per substep from torch.profiler
   train      `python -m apex_tpu_torch ppo` in-process, 2 iterations of
              32,768 env steps at 1024 envs; the run directory loads back
+  train_new_envs
+             one `ppo` iteration each through the CLI (256 envs, 2,048
+             steps, a 50-step evaluation): Cassie-v0 with learned gains, a
+             one-frame history, the min profile and the clock reward;
+             CassieTraj-v0; CassieStanding-v0; counted, each run dir
+             loading back
   walker_fleet
              Walker2d on the fleet tier at 2048 envs: K2 on its model and
              K3 on its M + hD against their plain versions (timed, with
@@ -117,6 +138,8 @@ from apex_tpu_torch.ops import cuda_build, pallas_linalg
 from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import (
     CASSIE_QPOS_INIT,
+    DEFAULT_D_GAIN,
+    DEFAULT_P_GAIN,
     MOTOR_QPOS_IDX,
     MOTOR_QVEL_IDX,
     PDCommand,
@@ -135,10 +158,30 @@ TERRAIN_CKPTS = {"mk5c": ("curves/cassie_mk5c_ckpt", 60),
                  "mk4_terrain": ("curves/cassie_mk4_terrain_ckpt", 50)}
 N_ENVS, TRAJ_LEN, FLEET = 64, 300, 1024
 EVAL_SEEDS = (42, 0, 1)
-# the mk4_hardened returns of the flat K1 path before the heightfield
-# branch was added (PERF.md, H100 80GB HBM3 at 700 W); the branch must
-# leave them unchanged
-FLAT_K1_RETURNS = {42: "134.0665", 0: "132.2858", 1: "127.8053"}
+# the megakernel-tier returns of the three checkpoints the port ran before
+# the CassieEnv switches (chip runs on an H100 80GB HBM3 at 700 W: mk4 since
+# the flat kernel, the terrain checkpoints since the heightfield branch);
+# the switches must leave them bit for bit
+EARLIER_RETURNS = {
+    "eval": {42: 134.06649780273438, 0: 132.2858123779297,
+             1: 127.8053207397461},
+    "eval_mk5c": {42: 263.1902770996094, 0: 271.5113525390625,
+                  1: 264.8030700683594},
+    "eval_mk4_terrain": {42: 149.15371704101562, 0: 143.16232299804688,
+                         1: 139.03880310058594}}
+# the checkpoints the switches unlock: (run dir, substeps per policy step,
+# JAX's returns of the 64-env, 300-step evaluation at seeds 42, 0 and 1 on
+# the CPU, scripts/reference_eval_seeds.py); curves/jax_eval_draws holds the
+# draws of JAX's seed-42 run (scripts/export_eval_draws.py)
+SWITCH_CKPTS = {
+    "main": ("curves/cassie_main_ckpt", 50, (114.6508, 121.1239, 125.5392)),
+    "main2": ("curves/cassie_main2_ckpt", 50, (112.9900, 123.6102, 117.0965)),
+    "mk3": ("curves/cassie_mk3_ckpt", 50, (159.3735, 163.3571, 163.1609)),
+    "mk5a": ("curves/cassie_mk5a_ckpt", 50, (145.8103, 152.2901, 150.7646)),
+    "mk5b": ("curves/cassie_mk5b_ckpt", 60, (270.1442, 267.4449, 267.9929)),
+    "cassie_traj": ("curves/cassie_traj_ckpt", 50,
+                    (155.0116, 159.7726, 157.1118))}
+EVAL_BOUND = 0.018     # the JAX package's bound between its physics tiers
 FLEET_TRAJ_LEN = 30                # depth of the fleet-tier evaluation
 SIMRATE = 50
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
@@ -824,6 +867,53 @@ def rounding_envelope(m, params, qpos, qvel, ctrl, gen, draws=4):
     return env_q, env_v
 
 
+def check_k1_gains(dev):
+    """K1 against its plain version with per-env PD gains, as a policy with
+    learned gains (CassieEnv learn_gains) hands them to K1's gain rows: the
+    defaults plus N(0, 40^2) on the p gains and N(0, 8^2) on the d gains,
+    so that some p and about a quarter of the d gains are negative, on the
+    perturbed fleet and near the standing pose, at B = 64 and 1024; held
+    per row to the plain version's rounding spread as `check_k1` holds
+    the default gains. Its own generator: no other phase's draws move."""
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    m = cassie_model()
+    nu = m.nu
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))[:, None]
+    out = {}
+    for B in (N_ENVS, FLEET):
+        for tag, make in (("perturbed", k1_inputs),
+                          ("standing", k1_standing_inputs)):
+            params, qpos, qvel, rows0 = make(B, gen, dev)
+            gains = torch.cat([
+                f32(DEFAULT_P_GAIN) + 40.0 * torch.randn(nu, B,
+                                                         generator=gen),
+                f32(DEFAULT_D_GAIN) + 8.0 * torch.randn(nu, B,
+                                                        generator=gen)])
+            rows = torch.cat([rows0[:2 * nu], gains.to(dev),
+                              rows0[4 * nu:]]).contiguous()
+            worst, _, force = k1_vs_plain(m, params, qpos, qvel, rows, gen,
+                                          f"K1-gains {tag} B={B}")
+            default = fleet_kernel.pd_substep(m, params, qpos, qvel, rows0)
+            moved = float((fleet_kernel.pd_substep(
+                m, params, qpos, qvel, rows)[1] - default[1]).abs().max())
+            if not moved > 0:
+                raise AssertionError(f"K1-gains {tag} B={B}: the gains do "
+                                     "not reach the kernel")
+            out[f"{tag}_{B}"] = dict(
+                max_err_over_bound=max(v[1] for v in worst.values()),
+                negative_p=int((gains[:nu] < 0).sum()),
+                negative_d=int((gains[nu:] < 0).sum()),
+                qvel_moved_from_default_gains=f"{moved:.3e}")
+            print(f"  K1-gains {tag} B={B}: vs plain (max err, x bound) "
+                  + ", ".join(f"{k} {v[0]:.3e} {v[1]:.2f}"
+                              for k, v in worst.items())
+                  + f"; {out[f'{tag}_{B}']['negative_d']} of {nu * B} d "
+                  f"gains negative; max contact force {force:.1f} N",
+                  flush=True)
+    return out
+
+
 def check_parity(dev):
     """The GPU path against the CPU path of the port on the same inputs:
     a reset of 4 envs (f32 rounding), and one substep of a 64-env dyn-rand
@@ -898,9 +988,9 @@ def eval_seeds(name, ckpt, simrate, hfield):
     seed of EVAL_SEEDS, counted: K1 once per substep (each a heightfield
     launch on terrain), K2 once per step for the pre-step foot positions,
     once per step for the auto-reset fleet and once for the initial reset,
-    K3 never. The flat checkpoint's returns must be those of the flat
-    kernel before the heightfield branch. Returns the first seed's counts
-    and a printable summary."""
+    K3 never. The returns must be bit for bit those of earlier runs
+    (EARLIER_RETURNS). Returns the first seed's counts and a printable
+    summary."""
     want = {"K1": TRAJ_LEN * simrate,
             "K1-hfield": TRAJ_LEN * simrate if hfield else 0,
             "K2": TRAJ_LEN * 2 + 1, "K3": 0}
@@ -915,10 +1005,10 @@ def eval_seeds(name, ckpt, simrate, hfield):
         ms.append(secs / TRAJ_LEN * 1e3)
         print(f"  {name} seed {seed}: return {ep_ret!r}, length "
               f"{ep_len:.2f}, {ms[-1]:.2f} ms per policy step", flush=True)
-        if ckpt == CKPT and f"{ep_ret:.4f}" != FLAT_K1_RETURNS[seed]:
+        if ep_ret != EARLIER_RETURNS[name][seed]:
             raise AssertionError(
-                f"{name} seed {seed}: return {ep_ret:.4f}, the flat kernel "
-                f"gave {FLAT_K1_RETURNS[seed]} before the heightfield branch")
+                f"{name} seed {seed}: return {ep_ret!r}, earlier runs gave "
+                f"{EARLIER_RETURNS[name][seed]!r}")
     return dict(first, summary=dict(
         mean_return=f"{np.mean(rets):.4f}", mean_length=f"{np.mean(lens):.2f}",
         returns=[f"{r:.4f}" for r in rets],
@@ -962,6 +1052,196 @@ def step_1024(dev):
                 launches_per_substep=f"{launch_calls / SIMRATE:.1f}",
                 device_busy_ms_per_policy_step=f"{busy_ms:.2f}",
                 device_idle_share=f"{1.0 - busy_ms / step_ms:.4f}")
+
+
+def draws_file(ckpt: str, folder: str = "curves/jax_eval_draws") -> str:
+    """The file of JAX's evaluation draws for a run dir: its name without
+    "cassie_" and "_ckpt"."""
+    name = os.path.basename(os.path.normpath(ckpt))
+    return os.path.join(folder, name.removeprefix("cassie_")
+                        .removesuffix("_ckpt") + ".npz")
+
+
+@contextlib.contextmanager
+def jax_draws(path: str):
+    """The port's evaluation on the draws of JAX's (a file of
+    `scripts/export_eval_draws.py`): while it is open, the Cassie envs draw
+    their own reset and step noise as always, and every value JAX's run
+    used takes JAX's place: the first fleet reset's, each auto-reset's rows
+    of the envs JAX reset at that step, and each step's command changes
+    (JAX's hit masks; its values where they hit). Draws JAX never used
+    (resets of envs that end at other steps than JAX's) stay the port's."""
+    from apex_tpu_torch.envs.cassie_traj import CassieTrajEnv
+
+    with np.load(path) as f:
+        d = {k: f[k] for k in f}
+    B, T = int(d["batch"]), int(d["steps"])
+    masks = {k[len("step_"):]: np.unpackbits(v, axis=-1, count=B)
+             .astype(bool) for k, v in d.items() if k.endswith("_hit")}
+    hit_of = {"orient_delta": "orient_hit", "new_speed": "speed_hit",
+              "new_side": "side_hit", "jump_size": "jump_hit",
+              "jump_sign": "jump_hit"}
+    values = {}
+    for k, h in hit_of.items():
+        if f"step_{k}" in d:
+            full = np.zeros((T, B), d[f"step_{k}"].dtype)
+            full[masks[h]] = d[f"step_{k}"]
+            values[k] = full
+    calls = {"reset": 0, "step": 0}
+    saved = {cls: (cls.sample_reset_noise, cls.sample_step_noise)
+             for cls in (CassieEnv, CassieTrajEnv)}
+
+    def put(noise, name, rows, vals):
+        x = getattr(noise, name)
+        x = x.clone()
+        x[..., rows] = torch.as_tensor(np.moveaxis(vals, 0, -1),
+                                       dtype=x.dtype, device=x.device)
+        return noise._replace(**{name: x})
+
+    def reset(own):
+        def sample(self, generator, batch):
+            assert batch == B
+            noise = own(self, generator, batch)
+            k = calls["reset"]
+            calls["reset"] += 1
+            if k == 0:
+                rows, pre = np.arange(B), "reset0_"
+                idx = slice(None)
+            else:
+                idx = d["reset_step"] == k - 1
+                rows, pre = d["reset_env"][idx], "reset_"
+            for name in noise._fields:
+                if f"{pre}{name}" in d and len(rows):
+                    noise = put(noise, name, rows, d[f"{pre}{name}"][idx])
+            return noise
+        return sample
+
+    def step(own):
+        def sample(self, generator, batch):
+            noise = own(self, generator, batch)
+            t = calls["step"]
+            calls["step"] += 1
+            dev = noise.orient_hit.device
+            new = {h: torch.as_tensor(masks[h][t], device=dev)
+                   for h in ("orient_hit", "speed_hit", "side_hit")
+                   if h in noise._fields}
+            for k, v in values.items():
+                if k in noise._fields:
+                    new[k] = torch.where(
+                        torch.as_tensor(masks[hit_of[k]][t], device=dev),
+                        torch.as_tensor(v[t], device=dev,
+                                        dtype=getattr(noise, k).dtype),
+                        getattr(noise, k))
+            if "jump_hit" in masks:
+                # a jump lands where U[0, 1) < orient_jump_prob
+                new["jump_u"] = torch.where(
+                    torch.as_tensor(masks["jump_hit"][t], device=dev),
+                    0.0, 1.0)
+            return noise._replace(**new)
+        return sample
+
+    for cls, (own_reset, own_step) in saved.items():
+        cls.sample_reset_noise = reset(own_reset)
+        cls.sample_step_noise = step(own_step)
+    try:
+        yield calls
+    finally:
+        for cls, (own_reset, own_step) in saved.items():
+            cls.sample_reset_noise, cls.sample_step_noise = (own_reset,
+                                                             own_step)
+
+
+def eval_switch_ckpts():
+    """The 64-env, 300-step megakernel-tier evaluation of each checkpoint
+    the CassieEnv switches unlock (SWITCH_CKPTS), counted as `eval_seeds`
+    counts (CassieTraj-v0's step reads the pre-step foot positions through
+    K2 too): at seed 42 on the port's own draws, printed, and on the draws
+    of JAX's seed-42 run (`jax_draws`), held to JAX's seed-42 return within
+    EVAL_BOUND, or within JAX's own seed spread (how far its seeds 0 and 1
+    land from seed 42) where that is wider: over 300 steps the two stacks'
+    rounding parts their trajectories (ROADMAP limit (a)), and a policy
+    that falls often turns that into falls at other steps, as other draws
+    do."""
+    out = {}
+    for name, (ckpt, simrate, (jax_ret, *others)) in SWITCH_CKPTS.items():
+        want = {"K1": TRAJ_LEN * simrate, "K1-hfield": 0,
+                "K2": TRAJ_LEN * 2 + 1, "K3": 0}
+        own, _, secs, n = run_eval("megakernel", TRAJ_LEN, 42, ckpt)
+        check_counts(f"eval_{name}", n, want)
+        path = draws_file(ckpt)
+        with np.load(path) as f:
+            if abs(float(f["jax_return"]) - jax_ret) > 1e-3:
+                raise AssertionError(f"{path} holds another run than JAX's "
+                                     f"seed-42 {jax_ret}")
+        with jax_draws(path):
+            ep_ret, ep_len, _, n = run_eval("megakernel", TRAJ_LEN, 42,
+                                            ckpt)
+        check_counts(f"eval_{name} on JAX's draws", n, want)
+        rel = (ep_ret - jax_ret) / jax_ret
+        spread = max(abs(r - jax_ret) for r in others) / jax_ret
+        bound = max(EVAL_BOUND, spread)
+        print(f"  eval_{name}: on JAX's seed-42 draws {ep_ret!r}, JAX "
+              f"{jax_ret} ({100 * rel:+.2f} %, bound {100 * bound:.2f} %: "
+              f"JAX's seeds 0 and 1 at {100 * spread:.2f} %), length "
+              f"{ep_len:.2f}; on the port's seed-42 draws {own:.4f} "
+              f"({100 * (own - jax_ret) / jax_ret:+.2f} %); "
+              f"{secs / TRAJ_LEN * 1e3:.2f} ms per policy step, K1 "
+              f"{n['K1']}, K2 {n['K2']}", flush=True)
+        if not abs(rel) <= bound:
+            raise AssertionError(
+                f"eval_{name}: return {ep_ret:.4f} on JAX's draws is "
+                f"{100 * rel:+.2f} % from JAX's {jax_ret}, beyond "
+                f"{100 * bound:.2f} %")
+        out[name] = (f"{ep_ret:.4f} vs JAX {jax_ret} ({100 * rel:+.2f} %, "
+                     f"bound {100 * bound:.2f} %), own draws {own:.4f}")
+    return out
+
+
+# one PPO iteration of each new env through the CLI: the fleet, steps per
+# iteration, evaluation length and obs-norm steps
+NEW_ENV_PPO = ["--num_procs", "256", "--num_steps", "2048",
+               "--max_traj_len", "50", "--n_itr", "1", "--input_norm_steps",
+               "512", "--minibatch_size", "256", "--seed", "0"]
+NEW_ENVS = {
+    "gains_history_min_clock": ("Cassie-v0", [
+        "--learn_gains", "--history", "1", "--reward", "clock",
+        "--input_profile", "min"]),
+    "traj": ("CassieTraj-v0", ["--mirror"]),
+    "standing": ("CassieStanding-v0", []),
+}
+
+
+def train_new_envs():
+    """`python -m apex_tpu_torch ppo` for one iteration on Cassie-v0 with
+    learned gains, a history, the min profile and the clock reward, on
+    CassieTraj-v0 and on CassieStanding-v0 (the CLI's 50 substeps, the
+    megakernel tier), counted: K1 once per substep of the 2 obs-norm, 8
+    rollout and 50 evaluation steps; K2 once per step for the auto-reset
+    fleet, once more per step where the step reads the pre-step foot
+    positions (not CassieStanding), and once per fresh fleet (PPO.init,
+    after the obs-norm burn-in, the evaluation); K3 never. Each run dir
+    loads back in the port's evaluation."""
+    steps = 512 // 256 + 2048 // 256 + 50
+    out = {}
+    for name, (env_name, flags) in NEW_ENVS.items():
+        per_step = 1 if env_name == "CassieStanding-v0" else 2
+        (secs, _, scalars, _), ret = run_cli(
+            ["ppo", *NEW_ENV_PPO, *flags], env_name,
+            {"K1": SIMRATE * steps, "K1-hfield": 0,
+             "K2": per_step * steps + 3, "K3": 0},
+            then=lambda run_dir: eval_checkpoint(
+                run_dir, n_episodes=8, traj_len=10, device="cuda"))
+        for tag in ("Test/Return", "Train/Return", "Misc/Actor Loss"):
+            if not np.all(np.isfinite(scalars[tag])):
+                raise AssertionError(f"train_{name}: {tag} = {scalars[tag]}")
+        if not (np.isfinite(ret[0]) and ret[1] > 0):
+            raise AssertionError(f"train_{name}: reloaded run gave {ret}")
+        out[name] = dict(seconds=f"{secs:.1f}", k1_launches=SIMRATE * steps,
+                         k2_launches=per_step * steps + 3,
+                         test_return=f"{scalars['Test/Return'][0]:.4f}",
+                         reloaded_return=f"{ret[0]:.4f}")
+        print(f"  train_{name}: {out[name]}", flush=True)
+    return out
 
 
 def profile_launches(fn):
@@ -1382,11 +1662,11 @@ def read_scalars(run_dir: str):
     return scalars
 
 
-def run_cli(argv, env_name: str, want):
+def run_cli(argv, env_name: str, want, then=None):
     """`python -m apex_tpu_torch <argv>` in-process on the card, in a
     temporary run directory under chiprun_out/, counted against `want`;
     returns (seconds, the run dir's experiment args, scalars, checkpoint
-    leaves)."""
+    leaves), and with `then` also then(run dir)'s result."""
     from apex_tpu_torch.__main__ import main as cli_main
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -1405,7 +1685,8 @@ def run_cli(argv, env_name: str, want):
                                  "named by the hash of its arguments")
         with open(os.path.join(run_dir, "checkpoint.pkl"), "rb") as f:
             leaves = pickle.load(f)
-        return secs, args, read_scalars(run_dir), leaves
+        out = secs, args, read_scalars(run_dir), leaves
+        return out if then is None else (out, then(run_dir))
 
 
 def td3_cassie():
@@ -1784,6 +2065,8 @@ def main() -> int:
     # traces of 10 launches held 2 and then none (PERF.md section 6)
     t0 = time.time()
     phase("K1-suites", t0, **check_k1_suites(gen, dev))
+    t0 = time.time()
+    phase("K1-gains", t0, **check_k1_gains(dev))
 
     t0 = time.time()
     reset_diff, qvel_diff, qpos_diff, ratio = check_parity(dev)
@@ -1830,11 +2113,17 @@ def main() -> int:
           ms_per_policy_step=f"{secs / FLEET_TRAJ_LEN * 1e3:.2f}",
           k3_launches=n["K3"], k2_launches=n["K2"])
 
+    # the checkpoints the CassieEnv switches unlock, and CassieTraj-v0
+    t0 = time.time()
+    phase("eval_switches", t0, **eval_switch_ckpts())
+
     t0 = time.time()
     phase("step_1024", t0, **step_1024(dev))
 
     t0 = time.time()
     phase("train", t0, **train(dev))
+    t0 = time.time()
+    phase("train_new_envs", t0, **train_new_envs())
 
     # Walker2d on the fleet tier, and the learners beyond PPO
     t0 = time.time()

@@ -8,6 +8,14 @@ with. Runs on the CPU:
     JAX_PLATFORMS=cpu python scripts/reference_eval_seeds.py \
         --path curves/cassie_mk5c_ckpt --seeds 42 0 1 \
         --n_episodes 64 --traj_len 300
+
+Checkpoints saved before the env state gained its phase_add leaf
+(`curves/cassie_main_ckpt`, `cassie_main2_ckpt`, `cassie_mk3_ckpt`: 87
+leaves against the template's 88) load through `load_experiment_lenient`:
+the leading leaves that agree with the template in shape (the policy, the
+value net, the normalizer, the optimizer states) come from the
+checkpoint, the rest (the runner's env state, which the evaluation
+replaces with a fresh fleet) from the template.
 """
 import argparse
 import pathlib
@@ -21,9 +29,38 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
 from apex_tpu.agents.rollout import init_runner, rollout_scan  # noqa: E402
+from apex_tpu.runtime import checkpoint  # noqa: E402
 from apex_tpu.runtime.evaluate import load_experiment  # noqa: E402
+
+
+def load_experiment_lenient(path: str):
+    """`load_experiment`, and for a checkpoint whose leaf count differs
+    from the template's, its leading leaves of the template's shapes over
+    the template (see the module docstring)."""
+    import pickle
+
+    real = checkpoint.load_checkpoint
+
+    def lenient(ckpt_path, template, name="checkpoint.pkl"):
+        with open(pathlib.Path(ckpt_path) / name, "rb") as f:
+            leaves = pickle.load(f)
+        t_leaves, treedef = jax.tree_util.tree_flatten(template)
+        if len(leaves) == len(t_leaves):
+            return real(ckpt_path, template, name)
+        n = next(i for i, (a, b) in enumerate(zip(leaves, t_leaves))
+                 if np.shape(a) != np.shape(b))
+        merged = [np.asarray(x, np.asarray(t).dtype)
+                  for x, t in zip(leaves[:n], t_leaves)] + t_leaves[n:]
+        return jax.tree_util.tree_unflatten(treedef, merged)
+
+    checkpoint.load_checkpoint = lenient
+    try:
+        return load_experiment(path)
+    finally:
+        checkpoint.load_checkpoint = real
 
 
 def eval_seed(ppo, state, seed: int, n_episodes: int, traj_len: int):
@@ -49,7 +86,7 @@ def main(argv=None):
     p.add_argument("--n_episodes", type=int, default=64)
     p.add_argument("--traj_len", type=int, default=300)
     args = p.parse_args(argv)
-    ppo, state, _ = load_experiment(args.path)
+    ppo, state, _ = load_experiment_lenient(args.path)
     rets = []
     for seed in args.seeds:
         t0 = time.time()

@@ -14,7 +14,9 @@ Writes into <out> (default curves/torch_<ckpt-name>_eval/):
   summary.json                       headline numbers, as the JAX file's,
                                      plus the card, the launches of each
                                      kernel per suite and the envs that
-                                     went non-finite
+                                     went non-finite (which ones:
+                                     scripts/replay_nonfinite.py replays
+                                     them)
 The PDFs need matplotlib and are skipped without it. Every suite is one
 fleet on the card (commands 10,000 envs, a 5k cell 3,971); wall_s is the
 port's time on this run's card. It needs a CUDA device.
@@ -102,6 +104,8 @@ def main():
         summary["commands"]["n_trials"] = nt
         summary["commands"]["ci95"] = round(
             1.96 * (p * (1 - p) / max(nt, 1)) ** 0.5, 4)
+        summary["commands"]["nonfinite_trials"] = [
+            int(t) for t in res["nonfinite_trials"]]
         summary["commands"]["launches"] = n
         summary["commands"]["wall_s"] = round(secs, 1)
         print("commands:", summary["commands"], flush=True)
@@ -151,6 +155,9 @@ def main():
             summary["5k"][ax] = {str(k): round(float(v), 3)
                                  for k, v in res[ax].items()}
         summary["5k"]["n_nonfinite"] = res["n_nonfinite"]
+        summary["5k"]["nonfinite_trials"] = [
+            [m, float(sp), t, float(fr), float(fm)]
+            for m, sp, t, fr, fm in res["nonfinite_trials"]]
         summary["5k"]["policy_steps"] = res["policy_steps"]
         summary["5k"]["launches"] = n
         summary["5k"]["wall_s"] = round(secs, 1)

@@ -38,6 +38,14 @@ MK4_HARDENED = ["ppo", "--dyn_random", "--mirror", "--num_procs", "1024",
 MK5C = ["ppo", "--reward", "5k_speed_reward", "--simrate", "60",
         "--min_speed", "0", "--max_speed", "3", "--mirror", "--num_procs",
         "1024"]
+# the new envs' flags: CassieTraj-v0 on the aslip library with the IK
+# baseline, CassieStanding-v0, and Cassie-v0 with learned gains and a
+# history
+TRAJ = ["ppo", "--env_name", "CassieTraj-v0", "--traj", "aslip",
+        "--no_delta", "--ik_baseline", "--mirror"]
+STANDING = ["ppo", "--env_name", "CassieStanding-v0", "--simrate", "60"]
+GAINS = ["ppo", "--learn_gains", "--history", "1", "--reward", "clock",
+         "--input_profile", "min"]
 # the learners' flag sets: bench.py's TD3 cell (Walker2d, 64 envs), the
 # CLI's defaults on Cassie, and a few flags changed
 TD3_SYNC = ["td3_sync", "--max_timesteps", "10240", "--start_timesteps",
@@ -67,10 +75,11 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-@pytest.mark.parametrize("argv", [MK4_HARDENED, MK5C, TD3_SYNC, TD3_ASYNC,
-                                  DDPG, ARS],
-                         ids=["mk4_hardened", "mk5c", "td3_sync",
-                              "td3_async", "ddpg", "ars"])
+@pytest.mark.parametrize("argv", [MK4_HARDENED, MK5C, TRAJ, STANDING,
+                                  GAINS, TD3_SYNC, TD3_ASYNC, DDPG, ARS],
+                         ids=["mk4_hardened", "mk5c", "traj", "standing",
+                              "gains", "td3_sync", "td3_async", "ddpg",
+                              "ars"])
 def test_ppo_namespace_matches_apex_py(argv, monkeypatch):
     """The namespace each CLI hands to run_experiment (stubbed), for ppo
     and the learners beyond it: the same keys in the same order and the
@@ -121,6 +130,41 @@ def test_mk5c_reward_run_dir_loads_in_apex_py(tmp_path):
         exp.actor.layers[0].weight.detach().numpy().T,
         np.asarray(jstate.actor.params["layers"][0]["w"]))
     assert jax.tree_util.tree_leaves(jstate)
+
+
+@pytest.mark.parametrize("argv", [
+    ["ppo", "--env_name", "CassieTraj-v0", "--mirror"],
+    ["ppo", "--env_name", "CassieTraj-v0", "--learn_gains", "--reward",
+     "no_speed_clock"],
+    ["ppo", "--env_name", "CassieStanding-v0"],
+    GAINS],
+    ids=["traj", "traj_gains_clock", "standing", "gains"])
+def test_new_env_run_dirs_load_in_apex_py(argv, tmp_path):
+    """A tiny CPU PPO run of each new env (2 envs, 3 substeps, one
+    iteration) names its run directory by JAX's hash of its arguments, and
+    the JAX package's load_experiment restores its checkpoint: the env
+    state's leaves are the JAX state's, leaf for leaf, or the template
+    would refuse them; the port loads the same actor back. (Both stacks'
+    load_experiment build CassieTraj-v0 without --traj, as JAX's does, so
+    a run on the aslip library loads in neither.)"""
+    rc = port_main([*argv, "--device", "cpu", "--simrate", "3",
+                    "--num_procs", "2", "--num_steps", "4",
+                    "--max_traj_len", "2", "--n_itr", "1",
+                    "--input_norm_steps", "2", "--logdir", str(tmp_path)])
+    assert rc == 0
+    env_name = argv[argv.index("--env_name") + 1] \
+        if "--env_name" in argv else "Cassie-v0"
+    (run_dir,) = (tmp_path / env_name).iterdir()
+    with open(run_dir / "experiment.pkl", "rb") as f:
+        args = pickle.load(f)
+    assert run_dir.name == f"{jax_log.args_hash(args)}-seed0"
+    ppo, jstate, _ = jax_load_experiment(str(run_dir))
+    exp = load_experiment(str(run_dir), device="cpu")
+    assert (exp.env.observation_size, exp.env.action_size) == (
+        ppo.env.observation_size, ppo.env.action_size)
+    np.testing.assert_array_equal(
+        exp.actor.layers[0].weight.detach().numpy().T,
+        np.asarray(jstate.actor.params["layers"][0]["w"]))
 
 
 @pytest.mark.parametrize("argv", [

@@ -111,7 +111,8 @@ def _step_draws_seq(jenv, keys):
     eager jax.random costs ~60 ms a call, whatever its batch."""
     flat = _step_draws(jenv, jnp.concatenate(keys))
     B = keys[0].shape[0]
-    return [type(flat)(*(x[t * B:(t + 1) * B] for x in flat))
+    return [type(flat)(*(None if x is None else x[t * B:(t + 1) * B]
+                         for x in flat))
             for t in range(len(keys))]
 
 
@@ -122,9 +123,9 @@ def _strong(tree):
     return jax.tree_util.tree_map(lambda x: jnp.asarray(np.asarray(x)), tree)
 
 
-def _jax_state(ps, obs):
-    """A port fleet state and its observation as the JAX env's batch-first
-    CassieEnvState (the inverse of test_torch_env._port_state)."""
+def _jax_state(ps):
+    """A port fleet state as the JAX env's batch-first CassieEnvState (the
+    inverse of test_torch_env._port_state)."""
     bf = lambda x: jnp.asarray(np.moveaxis(x.numpy(), -1, 0))
     pick = lambda cls, obj: cls(**{f.name: bf(getattr(obj, f.name))
                                    for f in dataclasses.fields(cls)})
@@ -133,8 +134,7 @@ def _jax_state(ps, obs):
     return JaxCassieEnvState(
         **{f.name: (pick(nested[f.name], getattr(ps, f.name))
                     if f.name in nested else bf(getattr(ps, f.name)))
-           for f in dataclasses.fields(ps)},
-        obs_history=jnp.asarray(obs.numpy())[:, None, :])
+           for f in dataclasses.fields(ps)})
 
 
 def _obs_errors(got, ref):
@@ -482,7 +482,7 @@ def test_eval_perturbation_matches_jax(mk4, monkeypatch):
     # tests/test_torch_env.py::test_reset_matches_jax), as JAX's state
     reset_noise = _reset_draws(jenv, k_reset)
     ps, pobs = penv.reset(reset_noise)
-    js, jobs = _jax_state(ps, pobs), jnp.asarray(pobs.numpy())
+    js, jobs = _jax_state(ps), jnp.asarray(pobs.numpy())
     js = js.replace(speed=f32([0.5] * B), side_speed=f32([0.0] * B),
                     phase=js.clock.phaselen * f32(P) / 2)
     push = f32(np.zeros((B, 6))).at[:, 3].set(f32(F) * jnp.cos(f32(A)))

@@ -155,6 +155,35 @@ def test_playground_reset_and_steps_match_jax(pg):
     _check_steps(pg, js, jobs)
 
 
+def test_playground_through_both_factories(pg):
+    """CassiePlayground-v0 is registered in both factories with the keys
+    simrate and mission (the port's factory used to refuse it): the JAX
+    factory builds the fixture's env, and the port's, stepped from JAX's
+    reset, follows JAX's run for three steps; its checkpoint leaves are
+    JAX's PlaygroundState's, leaf for leaf."""
+    from apex_tpu.envs.registry import env_factory as jax_env_factory
+    from apex_tpu_torch.envs.registry import env_factory
+
+    jenv = jax_env_factory("CassiePlayground-v0", simrate=SIMRATE,
+                           mission="default", reward="keepalive")
+    assert jenv == pg["jenv"]
+    penv = env_factory("CassiePlayground-v0", device="cpu",
+                       simrate=SIMRATE, mission="default")
+    assert isinstance(penv, CassiePlayground)
+    assert (penv.simrate, penv.missions) == (SIMRATE, ("default",))
+    js, jobs = pg["reset"](jax.random.split(jax.random.PRNGKey(1), FLEET))
+    state, obs = penv.reset(FLEET)
+    np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), rtol=1e-5,
+                               atol=1e-5)
+    _check_steps(dict(pg, penv=penv), js, jobs)
+    ours = penv.checkpoint_leaves(_port_state(js), obs)
+    theirs = [np.asarray(x) for x in jax.tree_util.tree_leaves(js)]
+    assert [(a.shape, a.dtype) for a in ours] == [
+        (b.shape, b.dtype) for b in theirs]
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_playground_command_counter_wraps_like_jax(pg):
     """From a state two rows before the schedule's end, with a moved
     mission origin and a heading already commanded: the counter wraps one
