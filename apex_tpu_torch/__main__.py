@@ -11,9 +11,12 @@ the evaluation's draws; `eval --physics` picks the PD scan's tier (K1
 left out, and always for the learners, the device's default (megakernel
 on CUDA, fleet on the CPU). The run directory's name hashes the namespace
 and experiment.pkl stores it, so the learners get apex.py's namespace:
-the subcommand and `--device` are taken out first. `rdpg`, `ars
---recurrent`, `ppo --recurrent` and `ppo --previous` are not ported yet
-and raise NotImplementedError.
+the subcommand and `--device` are taken out first. `ppo --previous`
+inherits the previous run's env keys (with `--exchange_reward`, a new
+reward and run name) where apex.py does, before the namespace is handed
+on. `ppo --recurrent` trains `RecurrentPPO`, `rdpg` the recurrent DPG and
+`ars --recurrent` ARS with an LSTM policy; as in apex.py, `eval` loads
+feed-forward PPO run directories only.
 """
 from __future__ import annotations
 
@@ -177,21 +180,11 @@ def main(argv=None) -> int:
     if args.cmd == "eval":
         return _eval(args)
 
-    if args.cmd == "ppo" and args.recurrent:
-        raise NotImplementedError(
-            "--recurrent (RecurrentPPO) is not ported to apex_tpu_torch yet")
-    if args.cmd == "ppo" and args.previous is not None:
-        raise NotImplementedError(
-            "--previous (curriculum continuation) is not ported to "
-            "apex_tpu_torch yet")
-    if args.cmd == "rdpg":
-        raise NotImplementedError(
-            "rdpg (recurrent DPG: EpisodeBuffer and the LSTM nets) is not "
-            "ported to apex_tpu_torch yet")
-    if args.cmd == "ars" and args.recurrent:
-        raise NotImplementedError(
-            "ars --recurrent (GaussianLSTMActor) is not ported to "
-            "apex_tpu_torch yet")
+    if args.cmd == "ppo":
+        # apex.py:101-102: a continuation inherits the previous run's env
+        from apex_tpu_torch.runtime.log import parse_previous
+
+        args = parse_previous(args)
 
     # the run directory's name hashes the namespace and experiment.pkl
     # stores it: keep them apex.py's, without the subcommand and device
@@ -205,10 +198,10 @@ def main(argv=None) -> int:
         from apex_tpu_torch.agents.td3 import run_experiment
 
         run_experiment(args, async_mode=cmd == "td3_async", device=device)
-    elif cmd == "ddpg":
+    elif cmd in ("ddpg", "rdpg"):
         from apex_tpu_torch.agents.dpg import run_experiment
 
-        run_experiment(args, recurrent=False, device=device)
+        run_experiment(args, recurrent=cmd == "rdpg", device=device)
     else:
         from apex_tpu_torch.agents.ars import run_experiment
 

@@ -9,8 +9,11 @@ stepping and its alive mask stops its return (ars.py:105-121). The update
 ranks the directions by max(r+, r-), keeps the top `deltas_used`, and
 steps by lr / (n sigma_R) sum (r+ - r-) δ (reference ARS.step,
 ars.py:122-157). v2 also normalises the observations, with every step's
-observation of the fleet, dead steps included. The LSTM policy
-(`recurrent`) is not ported yet and raises NotImplementedError.
+observation of the fleet, dead steps included. With `recurrent` the
+policy is a fixed-std `GaussianLSTMActor` of layers (hidden_size,
+hidden_size) acting with its mean, θ in the order JAX's `ravel_pytree`
+gives its params (`GaussianLSTMActor.flat_sizes`), each candidate's
+hidden state carried through its rollout (`GaussianLSTMActor.step_flat`).
 """
 from __future__ import annotations
 
@@ -21,7 +24,12 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.envs.base import Env
-from apex_tpu_torch.models.nets import LinearActor, NormState
+from apex_tpu_torch.models.nets import (
+    GaussianLSTMActor,
+    LinearActor,
+    NormState,
+    lstm_zero_carry,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,19 +56,23 @@ class ARSTrainState:
 
 class ARS:
     def __init__(self, env: Env, config: ARSConfig):
-        if config.recurrent:
-            raise NotImplementedError(
-                "recurrent ARS (GaussianLSTMActor) is not ported to "
-                "apex_tpu_torch yet")
         self.env = env
         self.config = config
         self.device = env.device
-        self.dim = LinearActor.flat_size(env.observation_size,
-                                         env.action_size, config.hidden_size)
+        if config.recurrent:
+            self.lstm_layers = (config.hidden_size, config.hidden_size)
+            self.dim = sum(int(np.prod(s)) for s in
+                           GaussianLSTMActor.flat_sizes(
+                               env.observation_size, env.action_size,
+                               self.lstm_layers))
+        else:
+            self.dim = LinearActor.flat_size(
+                env.observation_size, env.action_size, config.hidden_size)
 
     def init(self, seed: int) -> ARSTrainState:
         """Zero θ (the reference Linear_Actor zeroes every parameter,
-        actor.py:31-32)."""
+        actor.py:31-32; the LSTM policy's θ starts at zero too,
+        ars.py:67-72)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return ARSTrainState(
@@ -82,8 +94,16 @@ class ARS:
         steps = torch.zeros(n, dtype=torch.int32, device=self.device)
         alive = torch.ones(n, device=self.device)
         obs_seq = []
+        if cfg.recurrent:
+            carry = lstm_zero_carry(self.lstm_layers, (n,), self.device)
         for _ in range(cfg.max_traj_len):
-            action = LinearActor.act_flat(thetas, norm, obs, cfg.hidden_size)
+            if cfg.recurrent:
+                carry, action = GaussianLSTMActor.step_flat(
+                    thetas, norm, carry, obs, self.lstm_layers,
+                    env.action_size)
+            else:
+                action = LinearActor.act_flat(thetas, norm, obs,
+                                              cfg.hidden_size)
             obs_seq.append(obs)
             state, obs, r, term = env.step(
                 state, action, env.sample_step_noise(generator, n))

@@ -1,18 +1,23 @@
-"""Deep deterministic policy gradient (DDPG) on one device.
+"""Deep deterministic policy gradient (DDPG) and recurrent DPG (RDPG) on
+one device.
 
-Port of the feed-forward path of `apex_tpu/agents/dpg.py` (reference
-rl/algos/dpg.py): the env fleet collects into the replay ring on the
-device, then each update takes the critic step, the actor step on the
-updated critic and the soft target updates. One update (`_update`) takes
-its batch as an argument, so that the tests can feed it the JAX package's
-draws. The recurrent variant (RDPG: the episode ring and the LSTM nets)
-is not ported yet and raises NotImplementedError.
+Port of `apex_tpu/agents/dpg.py` (reference rl/algos/dpg.py). DDPG: the
+env fleet collects into the replay ring on the device, then each update
+takes the critic step, the actor step on the updated critic and the soft
+target updates. RDPG: a fresh fleet collects one episode per env
+(`max_traj_len` steps, masked after the first termination) into a ring
+of whole episodes (`EpisodeBuffer`), and each update samples
+`traj_batch` episodes and takes the same three steps with BPTT through
+the LSTM actor (tanh head) and LSTM Q, the losses averaged over the
+masked steps. Both optimisers are plain `optax.adam`. One update
+(`_update`, `_update_rnn`) takes its batch as an argument, so that the
+tests can feed it the JAX package's draws.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Sequence, Tuple
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,6 +28,7 @@ from apex_tpu_torch.agents.rollout import (
     RunnerState,
     episode_stats,
     evaluate_policy,
+    first_episode_mask,
     init_runner,
 )
 from apex_tpu_torch.agents.td3 import (
@@ -33,7 +39,13 @@ from apex_tpu_torch.agents.td3 import (
     soft_update,
 )
 from apex_tpu_torch.envs.base import Env
-from apex_tpu_torch.models.nets import FFQ, FFActor, NormState
+from apex_tpu_torch.models.nets import (
+    FFQ,
+    LSTMQ,
+    FFActor,
+    LSTMActor,
+    NormState,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,18 +65,60 @@ class DPGConfig:
     max_action: float = 1.0
     updates_per_iter: int = 80
     recurrent: bool = False
+    episode_capacity: int = 2048      # RDPG episode ring
+    traj_batch: int = 16              # RDPG episodes per update
+
+
+class EpisodeBuffer:
+    """RDPG's ring of whole episodes (`EpisodeBuffer`, dpg.py:64-102):
+    fields (capacity, T, ...), updated in place; `ptr` and `size` are
+    host ints."""
+
+    FIELDS = ("obs", "action", "reward", "next_obs", "mask", "not_done")
+
+    def __init__(self, capacity: int, T: int, obs_dim: int, act_dim: int,
+                 device: torch.device):
+        z = lambda *shape: torch.zeros(shape, device=device)
+        self.obs = z(capacity, T, obs_dim)
+        self.action = z(capacity, T, act_dim)
+        self.reward = z(capacity, T)
+        self.next_obs = z(capacity, T, obs_dim)
+        self.mask = z(capacity, T)          # 1 while the episode is alive
+        self.not_done = z(capacity, T)      # 0 at a true termination
+        self.ptr = 0
+        self.size = 0
+
+    def add_episodes(self, *episodes: torch.Tensor) -> None:
+        """Insert n episodes (n, T, ...) per field, wrapping modulo the
+        capacity."""
+        n = episodes[0].shape[0]
+        cap = self.obs.shape[0]
+        idx = (self.ptr + torch.arange(n, device=self.obs.device)) % cap
+        for name, rows in zip(self.FIELDS, episodes):
+            getattr(self, name).index_copy_(0, idx, rows)
+        self.ptr = (self.ptr + n) % cap
+        self.size = min(self.size + n, cap)
+
+    def gather(self, idx: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, name)[idx] for name in self.FIELDS)
+
+    def sample(self, generator: torch.Generator, batch: int):
+        """Uniform episodes over the filled rows."""
+        idx = torch.randint(0, max(self.size, 1), (batch,),
+                            generator=generator, device=self.obs.device)
+        return self.gather(idx)
 
 
 @dataclasses.dataclass
 class DPGTrainState:
-    actor: FFActor
-    actor_target: FFActor
-    critic: FFQ
-    critic_target: FFQ
+    actor: Union[FFActor, LSTMActor]
+    actor_target: Union[FFActor, LSTMActor]
+    critic: Union[FFQ, LSTMQ]
+    critic_target: Union[FFQ, LSTMQ]
     norm: NormState
     actor_opt: ClippedAdam
     critic_opt: ClippedAdam
-    replay: ReplayBuffer
+    replay: Union[ReplayBuffer, EpisodeBuffer]
     runner: RunnerState
     generator: torch.Generator
     seed: int
@@ -74,21 +128,31 @@ class DPG:
     """Wires an Env and a DPGConfig into the train and eval steps."""
 
     def __init__(self, env: Env, config: DPGConfig):
-        if config.recurrent:
-            raise NotImplementedError(
-                "recurrent DPG (RDPG: EpisodeBuffer and the LSTM nets) is "
-                "not ported to apex_tpu_torch yet")
         self.env = env
         self.config = config
         self.device = env.device
 
     def init(self, seed: int) -> DPGTrainState:
+        """The nets (DDPG: FFActor and FFQ; RDPG: the tanh LSTMActor and
+        LSTMQ, layers (128, 128), dpg.py:138-146), their targets, the
+        optimisers, the replay ring (RDPG: the episode ring) and a
+        fleet."""
         cfg = self.config
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         obs_dim, act_dim = self.env.observation_size, self.env.action_size
-        actor = FFActor.init(gen, obs_dim, act_dim, max_action=cfg.max_action)
-        critic = FFQ.init(gen, obs_dim, act_dim)
+        if cfg.recurrent:
+            actor = LSTMActor.init(gen, obs_dim, act_dim,
+                                   max_action=cfg.max_action)
+            critic = LSTMQ.init(gen, obs_dim, act_dim)
+            replay = EpisodeBuffer(cfg.episode_capacity, cfg.max_traj_len,
+                                   obs_dim, act_dim, self.device)
+        else:
+            actor = FFActor.init(gen, obs_dim, act_dim,
+                                 max_action=cfg.max_action)
+            critic = FFQ.init(gen, obs_dim, act_dim)
+            replay = ReplayBuffer(cfg.replay_size, obs_dim, act_dim,
+                                  self.device)
         with torch.no_grad():
             runner = init_runner(self.env, gen, cfg.num_envs)
         return DPGTrainState(
@@ -99,9 +163,7 @@ class DPG:
                                   ADAM_EPS),
             critic_opt=ClippedAdam(critic.parameters(), cfg.c_lr, None,
                                    ADAM_EPS),
-            replay=ReplayBuffer(cfg.replay_size, obs_dim, act_dim,
-                                self.device),
-            runner=runner, generator=gen, seed=seed)
+            replay=replay, runner=runner, generator=gen, seed=seed)
 
     def _update(self, state: DPGTrainState, batch: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,6 +190,8 @@ class DPG:
         return c_loss.detach(), a_loss.detach()
 
     def _train_iteration(self, state: DPGTrainState, random_actions: bool):
+        if self.config.recurrent:
+            return self._train_iteration_rnn(state, random_actions)
         cfg = self.config
         state, traj = collect(self.env, state, state.actor, cfg.expl_noise,
                               cfg, random_actions)
@@ -144,10 +208,120 @@ class DPG:
             "reward_per_step": stats["reward_per_step"],
         }
 
+    # ------------------------------------------------------------------
+    # recurrent DPG
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _collect_episodes(self, state: DPGTrainState, random_actions: bool):
+        """A fresh fleet, one episode per env for max_traj_len steps
+        without resets, acting with U[-max_action, max_action) actions in
+        the warm-up, else with the LSTM actor's action plus N(0,
+        expl_noise^2), clipped (dpg.py:243-289). Returns the episodes (B,
+        T, ...): obs, action, reward, next_obs, mask (1 up to and
+        including the first termination) and not_done."""
+        cfg = self.config
+        env, gen = self.env, state.generator
+        B, m = cfg.num_envs, cfg.max_action
+        runner = init_runner(env, gen, B)
+        env_state, obs = runner.env_state, runner.obs
+        carry = state.actor.zero_carry((B,))
+        out = []
+        for _ in range(cfg.max_traj_len):
+            if random_actions:
+                action = -m + 2.0 * m * torch.rand(
+                    (B, env.action_size), generator=gen, device=self.device)
+            else:
+                carry, mean = state.actor.step_act(state.norm, carry, obs)
+                action = torch.clamp(mean + cfg.expl_noise * torch.randn(
+                    mean.shape, generator=gen, device=self.device), -m, m)
+            env_state, next_obs, reward, terminated = env.step(
+                env_state, action, env.sample_step_noise(gen, B))
+            out.append((obs, action, reward, next_obs, terminated))
+            obs = next_obs
+        obs, action, reward, next_obs, term = (
+            torch.stack(x, dim=1) for x in zip(*out))
+        return (obs, action, reward, next_obs,
+                first_episode_mask(term, dim=1), 1.0 - term.float())
+
+    def _update_rnn(self, state: DPGTrainState,
+                    batch: Sequence[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One RDPG update (dpg.py:296-337) on sampled episodes (obs,
+        action, reward, next_obs, mask, not_done), each (n, T, ...): BPTT
+        through the sequences, the critic step, the actor step on the
+        updated critic, the soft target updates; the losses averaged over
+        the masked steps. Returns (critic loss, actor loss)."""
+        cfg = self.config
+        norm = state.norm
+        obs, act, rew, next_obs, mask, nd = (x.transpose(0, 1)
+                                             for x in batch)
+        with torch.no_grad():
+            next_a = state.actor_target.seq_act(norm, next_obs)
+            q_next = state.critic_target.seq_q(norm, next_obs,
+                                               next_a)[..., 0]
+            target = rew + nd * cfg.discount * q_next
+        q = state.critic.seq_q(norm, obs, act)[..., 0]
+        c_loss = (((q - target) ** 2) * mask).sum() / mask.sum()
+        state.critic_opt.step(torch.autograd.grad(c_loss,
+                                                  state.critic_opt.params))
+        q = state.critic.seq_q(norm, obs, state.actor.seq_act(norm, obs))
+        a_loss = -(q[..., 0] * mask).sum() / mask.sum()
+        state.actor_opt.step(torch.autograd.grad(a_loss,
+                                                 state.actor_opt.params))
+        soft_update(state.actor_target, state.actor, cfg.tau)
+        soft_update(state.critic_target, state.critic, cfg.tau)
+        return c_loss.detach(), a_loss.detach()
+
+    def _train_iteration_rnn(self, state: DPGTrainState,
+                             random_actions: bool):
+        """An episode per env into the ring, then the full
+        `updates_per_iter` budget of BPTT updates (dpg.py:291-362)."""
+        cfg = self.config
+        eps = self._collect_episodes(state, random_actions)
+        state.replay.add_episodes(*eps)
+        losses = torch.stack([
+            torch.stack(self._update_rnn(state, state.replay.sample(
+                state.generator, cfg.traj_batch)))
+            for _ in range(max(1, cfg.updates_per_iter))])
+        return state, self._rnn_metrics(eps, losses)
+
+    @staticmethod
+    def _rnn_metrics(eps, losses: torch.Tensor) -> dict:
+        _, _, reward, _, mask, _ = eps
+        return {
+            "critic_loss": losses[:, 0].mean(),
+            "actor_loss": losses[:, 1].mean(),
+            "train_ep_return": (reward * mask).sum(dim=1).mean(),
+            "train_ep_len": mask.sum(dim=1).mean(),
+            "reward_per_step": (reward * mask).sum() / mask.sum(),
+        }
+
+    @torch.no_grad()
     def _evaluate(self, state: DPGTrainState, generator: torch.Generator):
-        return evaluate_policy(
-            self.env, lambda obs: state.actor.act(state.norm, obs),
-            generator, self.config.num_envs, self.config.max_traj_len)
+        cfg = self.config
+        if not cfg.recurrent:
+            return evaluate_policy(
+                self.env, lambda obs: state.actor.act(state.norm, obs),
+                generator, cfg.num_envs, cfg.max_traj_len)
+        # a fresh fleet, max_traj_len steps without resets, each env's
+        # first episode (dpg.py:364-392)
+        env, B = self.env, cfg.num_envs
+        runner = init_runner(env, generator, B)
+        env_state, obs = runner.env_state, runner.obs
+        carry = state.actor.zero_carry((B,))
+        rewards, terms = [], []
+        for _ in range(cfg.max_traj_len):
+            carry, mean = state.actor.step_act(state.norm, carry, obs)
+            env_state, obs, reward, terminated = env.step(
+                env_state, mean, env.sample_step_noise(generator, B))
+            rewards.append(reward)
+            terms.append(terminated)
+        rewards = torch.stack(rewards)
+        mask = first_episode_mask(torch.stack(terms))
+        return {"ep_return": (rewards * mask).sum(dim=0).mean(),
+                "ep_len": mask.sum(dim=0).mean(),
+                "reward_per_step": (rewards * mask).sum() / mask.sum(),
+                "num_episodes": torch.tensor(B)}
 
     def train(self, state: DPGTrainState, max_timesteps: int,
               eval_freq_iters: int = 10, logger=None, save_fn=None,
@@ -156,7 +330,8 @@ class DPG:
         `eval_freq_iters` iterations, saving on a new best
         (dpg.py:417-441)."""
         cfg = self.config
-        steps_per_iter = cfg.collect_steps * cfg.num_envs
+        steps_per_iter = (cfg.max_traj_len if cfg.recurrent
+                          else cfg.collect_steps) * cfg.num_envs
         n_iters = max(1, int(max_timesteps) // steps_per_iter)
         warmup = max(1, cfg.start_timesteps // steps_per_iter)
         highest = -np.inf
@@ -187,7 +362,7 @@ class DPG:
 
 def run_experiment(args, recurrent: bool = False, device=None):
     """CLI entry (reference dpg.py:197-341): `device` is where the run goes
-    (None: the GPU); `args` holds apex.py's ddpg flags only."""
+    (None: the GPU); `args` holds apex.py's ddpg or rdpg flags only."""
     from apex_tpu_torch.runtime.checkpoint import save_checkpoint
     from apex_tpu_torch.runtime.log import create_logger
 
@@ -200,8 +375,8 @@ def run_experiment(args, recurrent: bool = False, device=None):
     dpg = DPG(env, cfg)
     state = dpg.init(seed=args.seed)
     logger = create_logger(args)
-    print(f"Deterministic Policy Gradient on {env.device} (run dir "
-          f"{logger.dir})", flush=True)
+    print(("Recurrent " if recurrent else "") + "Deterministic Policy "
+          f"Gradient on {env.device} (run dir {logger.dir})", flush=True)
     state = dpg.train(state, max_timesteps=int(args.max_timesteps),
                       logger=logger,
                       save_fn=lambda st: save_checkpoint(logger.dir, st, env))

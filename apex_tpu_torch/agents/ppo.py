@@ -114,6 +114,24 @@ class PPOConfig:
         return max(1, self.num_steps // self.num_envs)
 
 
+def mirror_tables(env: Env, config: PPOConfig):
+    """(obs_mirror, act_mirror), the signed permutation matrices of the
+    mirror loss on the env's device, or (None, None) without it."""
+    if not (config.use_mirror and env.mirrored_obs is not None):
+        return None, None
+    f32 = lambda m: torch.tensor(m, device=env.device)
+    obs_mirror = f32(mirror_matrix(env.mirrored_obs))
+    if obs_mirror.shape[0] != env.observation_size:
+        # the mirror table covers one frame of a history: JAX's loss
+        # fails on the same shapes at its first update
+        raise ValueError(
+            f"the mirror loss needs the mirror table "
+            f"({obs_mirror.shape[0]} entries) to cover the observation "
+            f"({env.observation_size}); with history > 0 it covers one "
+            "frame only")
+    return obs_mirror, f32(mirror_matrix(env.mirrored_acts))
+
+
 @dataclasses.dataclass
 class PPOTrainState:
     actor: GaussianFFActor
@@ -133,20 +151,7 @@ class PPO:
         self.env = env
         self.config = config
         self.device = env.device
-        if config.use_mirror and env.mirrored_obs is not None:
-            f32 = lambda m: torch.tensor(m, device=self.device)
-            self.obs_mirror = f32(mirror_matrix(env.mirrored_obs))
-            self.act_mirror = f32(mirror_matrix(env.mirrored_acts))
-            if self.obs_mirror.shape[0] != env.observation_size:
-                # the mirror table covers one frame of a history: JAX's
-                # loss fails on the same shapes at its first update
-                raise ValueError(
-                    f"the mirror loss needs the mirror table "
-                    f"({self.obs_mirror.shape[0]} entries) to cover the "
-                    f"observation ({env.observation_size}); with history "
-                    "> 0 it covers one frame only")
-        else:
-            self.obs_mirror = self.act_mirror = None
+        self.obs_mirror, self.act_mirror = mirror_tables(env, config)
 
     # ------------------------------------------------------------------
     # initialization
@@ -431,9 +436,10 @@ class PPO:
 
 
 def run_experiment(args, device=None):
-    """CLI entry (reference rl/algos/ppo.py:507-584): env and nets,
-    obs-norm burn-in, run directory, training. `device` is where the run
-    goes (None: the GPU); `args` holds apex.py's ppo flags only."""
+    """CLI entry (reference rl/algos/ppo.py:507-584): env and nets (the
+    LSTM ones of `RecurrentPPO` with `args.recurrent`), obs-norm burn-in,
+    run directory, training. `device` is where the run goes (None: the
+    GPU); `args` holds apex.py's ppo flags only."""
     from apex_tpu_torch.envs.registry import env_factory
     from apex_tpu_torch.runtime.checkpoint import save_checkpoint
     from apex_tpu_torch.runtime.log import create_logger
@@ -463,7 +469,13 @@ def run_experiment(args, device=None):
         std_dev=args.std_dev, learn_stddev=args.learn_stddev,
         bounded=args.bounded)
 
-    ppo = PPO(env, cfg)
+    if getattr(args, "recurrent", False):
+        # the recurrent path uses no mesh (ppo.py:600-603, 625)
+        from apex_tpu_torch.agents.ppo_recurrent import RecurrentPPO
+
+        ppo = RecurrentPPO(env, cfg)
+    else:
+        ppo = PPO(env, cfg)
     state = ppo.init(seed=args.seed)
     print(f"obs_dim: {env.observation_size}, action_dim: {env.action_size}")
     if args.input_norm_steps > 0:

@@ -101,6 +101,15 @@ def episode_stats(traj: Rollout):
     }
 
 
+def first_episode_mask(terminated: torch.Tensor, dim: int = 0
+                       ) -> torch.Tensor:
+    """1.0 at the steps of each env's first episode, the terminating step
+    included, along `dim` of a run without resets (ppo_recurrent.py:409-411,
+    dpg.py:283-285)."""
+    term = terminated.float()
+    return ((torch.cumsum(term, dim=dim) - term) == 0).float()
+
+
 @torch.no_grad()
 def evaluate_policy(env: Env, policy_fn: Callable[[torch.Tensor],
                                                   torch.Tensor],

@@ -159,3 +159,9 @@ class PointMassEnv(Env):
                           obs: torch.Tensor) -> List[np.ndarray]:
         return [to_batch_first(x)
                 for x in (state.pos, state.vel, state.cmd, state.t)]
+
+    def state_from_checkpoint_leaves(self, leaves) -> PointMassState:
+        """The inverse of `checkpoint_leaves`."""
+        return PointMassState(*(torch.as_tensor(np.asarray(x).T.copy(),
+                                                device=self.device)
+                                for x in leaves))

@@ -122,3 +122,9 @@ class Walker2dEnv(Env):
                           obs: torch.Tensor) -> List[np.ndarray]:
         """JAX's batch-first `WalkerState(qpos, qvel)`."""
         return [to_batch_first(state.qpos), to_batch_first(state.qvel)]
+
+    def state_from_checkpoint_leaves(self, leaves) -> WalkerState:
+        """The inverse of `checkpoint_leaves`."""
+        qpos, qvel = (torch.as_tensor(np.asarray(x).T.copy(),
+                                      device=self.device) for x in leaves)
+        return WalkerState(qpos=qpos, qvel=qvel)

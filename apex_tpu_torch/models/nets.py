@@ -1,18 +1,22 @@
 """Actors, critics and the observation normalizer as torch modules.
 
 Port of `NormState`, `GaussianFFActor`, `FFActor`, `LinearActor`, `FFV`,
-`FFQ` and `DualQCritic` from `apex_tpu/models/nets.py` (reference
-rl/policies/actor.py:22-215, critic.py:37-168). The JAX nets keep (in,
+`FFQ`, `DualQCritic` and the LSTM stack (`GaussianLSTMActor`,
+`LSTMActor`, `LSTMV`, `LSTMQ`) from `apex_tpu/models/nets.py` (reference
+rl/policies/actor.py:22-311, critic.py:37-294). The JAX nets keep (in,
 out) weights and compute x @ W + b; here they are `nn.Linear` layers with
 (out, in) weights, and `runtime/checkpoint.py` transposes when it reads or
 writes JAX leaves. `init` builds a net with the JAX package's initialisers
 (normc, the mean head scaled by 0.01, zero biases; torch's default
-uniform for `DualQCritic`; zeros for `LinearActor`), drawing from an
-explicit generator on its device.
+uniform for `DualQCritic` and the LSTM nets' heads, U(-1/sqrt(H),
+1/sqrt(H)) for their cells; zeros for `LinearActor`), drawing from an
+explicit generator on its device. The LSTM cells keep nn.LSTMCell's
+(4H, in) weights and gate order [i, f, g, o], and are stepped by hand, so
+that every sum is JAX's.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -315,3 +319,273 @@ class DualQCritic(nn.Module):
            action: torch.Tensor) -> torch.Tensor:
         """Q1 alone, for the actor loss (critic.py:154-168)."""
         return self.branches[0](torch.cat([norm(obs), action], dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# LSTM stack (reference nn.LSTMCell chains, actor.py:74-139, 218-311)
+# ---------------------------------------------------------------------------
+
+LOG_STD_LO, LOG_STD_HI = -20.0, -1.5    # learned-std clamp (nets.py:40-41)
+
+
+class LSTMCell(nn.Module):
+    """One cell's parameters under nn.LSTMCell's names and shapes:
+    weight_ih (4H, in), weight_hh (4H, H), bias_ih and bias_hh (4H,), the
+    gates in the order [i, f, g, o]. The JAX package stores the weights
+    (in, 4H) and (H, 4H); `runtime/checkpoint.py` transposes."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.zeros(4 * hidden, in_dim))
+        self.weight_hh = nn.Parameter(torch.zeros(4 * hidden, hidden))
+        self.bias_ih = nn.Parameter(torch.zeros(4 * hidden))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+
+    def forward(self, h: torch.Tensor, c: torch.Tensor, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`_lstm_cell_step` (nets.py:507-514), its sums in JAX's order."""
+        gates = (x @ self.weight_ih.T + self.bias_ih + h @ self.weight_hh.T
+                 + self.bias_hh)
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        c_new = f * c + i * torch.tanh(g)
+        return o * torch.tanh(c_new), c_new
+
+
+Carry = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def lstm_cells(in_dim: int, layers: Sequence[int]) -> nn.ModuleList:
+    dims = (in_dim, *layers)
+    return nn.ModuleList(LSTMCell(a, b) for a, b in zip(dims, dims[1:]))
+
+
+@torch.no_grad()
+def lstm_init_(cells: nn.ModuleList, generator: torch.Generator) -> None:
+    """`lstm_init` (nets.py:478-496): every weight and bias of a cell of
+    width H drawn U(-1/sqrt(H), 1/sqrt(H))."""
+    for cell in cells:
+        k = 1.0 / float(np.sqrt(np.float32(cell.weight_hh.shape[1])))
+        for p in (cell.weight_ih, cell.weight_hh, cell.bias_ih,
+                  cell.bias_hh):
+            p.copy_(-k + 2.0 * k * torch.rand(p.shape, generator=generator,
+                                              device=generator.device))
+
+
+def lstm_zero_carry(layers: Sequence[int], batch_shape=(), device=None
+                    ) -> Carry:
+    """Zeroed (h, c) per cell (reference init_hidden_state,
+    actor.py:104-106)."""
+    return [(torch.zeros((*batch_shape, h), device=device),
+             torch.zeros((*batch_shape, h), device=device)) for h in layers]
+
+
+def lstm_step(cells: nn.ModuleList, carry: Carry, x: torch.Tensor
+              ) -> Tuple[Carry, torch.Tensor]:
+    """One time step through the whole stack: (new carry, top h)."""
+    new = []
+    for cell, (h, c) in zip(cells, carry):
+        h, c = cell(h, c, x)
+        new.append((h, c))
+        x = h
+    return new, x
+
+
+def carry_where(done: torch.Tensor, zero: Carry, carry: Carry) -> Carry:
+    """Per-env reset of a carry where done (B,) holds (`_carry_where`,
+    ppo_recurrent.py:39-43)."""
+    d = done[:, None]
+    return [(torch.where(d, zh, h), torch.where(d, zc, c))
+            for (zh, zc), (h, c) in zip(zero, carry)]
+
+
+def lstm_seq(cells: nn.ModuleList, carry: Carry, xs: torch.Tensor,
+             starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The stack scanned over xs (T, ..., in) from `carry`: the top h of
+    every step (T, ..., H). Where starts (T, B) > 0.5 the carry is zeroed
+    before that step's cell step (`_seq_apply`, ppo_recurrent.py:223-236)."""
+    zero = None if starts is None else [
+        (torch.zeros_like(h), torch.zeros_like(c)) for h, c in carry]
+    tops = []
+    for t in range(xs.shape[0]):
+        if starts is not None:
+            carry = carry_where(starts[t] > 0.5, zero, carry)
+        carry, top = lstm_step(cells, carry, xs[t])
+        tops.append(top)
+    return torch.stack(tops)
+
+
+class _LSTMNet(nn.Module):
+    """An LSTM stack over the normalised observation (and, for LSTMQ, the
+    action) with a linear head `out`, initialised as the JAX package does:
+    `lstm_init`'s uniform cells, torch's default uniform for the heads."""
+
+    def __init__(self, in_dim: int, out_dim: int, layers: Sequence[int]):
+        super().__init__()
+        self.layers = tuple(layers)
+        self.cells = lstm_cells(in_dim, layers)
+        self.out = nn.Linear(layers[-1], out_dim)
+
+    def _init(self, generator: torch.Generator):
+        lstm_init_(self.cells, generator)
+        _uniform_(self.out, generator)
+        return self
+
+    def zero_carry(self, batch_shape=()) -> Carry:
+        return lstm_zero_carry(self.layers, batch_shape,
+                               self.out.weight.device)
+
+    def _seq(self, xs: torch.Tensor) -> torch.Tensor:
+        return lstm_seq(self.cells, self.zero_carry(xs.shape[1:-1]), xs)
+
+
+class GaussianLSTMActor(_LSTMNet):
+    """Reference Gaussian_LSTM_Actor (actor.py:218-311): LSTM stack, linear
+    mean head, a fixed std or exp(clip(log-std head, -20, -1.5))."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 layers: Sequence[int] = (128, 128),
+                 fixed_std: Optional[float] = None):
+        super().__init__(obs_dim, action_dim, layers)
+        self.log_std = (nn.Linear(layers[-1], action_dim)
+                        if fixed_std is None else None)
+        self.fixed_std = fixed_std
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             layers: Sequence[int] = (128, 128),
+             fixed_std: Optional[float] = None) -> "GaussianLSTMActor":
+        """`GaussianLSTMActor.init` (nets.py:533-546)."""
+        actor = cls(obs_dim, action_dim, layers, fixed_std).to(
+            generator.device)._init(generator)
+        if actor.log_std is not None:
+            _uniform_(actor.log_std, generator)
+        return actor
+
+    def head(self, top: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        mean = self.out(top)
+        if self.log_std is not None:
+            std = torch.exp(torch.clamp(self.log_std(top), LOG_STD_LO,
+                                        LOG_STD_HI))
+        else:
+            std = torch.full_like(mean, self.fixed_std)
+        return mean, std
+
+    def step_dist(self, norm: NormState, carry: Carry, obs: torch.Tensor):
+        """One control step: (carry, obs) -> (carry', (mean, std))."""
+        carry, top = lstm_step(self.cells, carry, norm(obs))
+        return carry, self.head(top)
+
+    def seq_dist(self, norm: NormState, obs_seq: torch.Tensor):
+        """(T, ..., obs_dim) from a zero carry -> (mean, std)."""
+        return self.head(self._seq(norm(obs_seq)))
+
+    @staticmethod
+    def flat_sizes(obs_dim: int, action_dim: int, layers: Sequence[int]
+                   ) -> List[Tuple[int, ...]]:
+        """The shapes, in `ravel_pytree`'s order of the JAX params of a
+        fixed-std actor (dict keys sorted: cells[i].{b_hh, b_ih, w_hh,
+        w_ih}, then out.{b, w}), weights (in, out)."""
+        dims = (obs_dim, *layers)
+        shapes = []
+        for a, h in zip(dims, dims[1:]):
+            shapes += [(4 * h,), (4 * h,), (h, 4 * h), (a, 4 * h)]
+        return shapes + [(action_dim,), (layers[-1], action_dim)]
+
+    @staticmethod
+    def step_flat(thetas: torch.Tensor, norm: NormState, carry: Carry,
+                  obs: torch.Tensor, layers: Sequence[int], action_dim: int):
+        """A fleet of fixed-std LSTM actors, one per row: thetas (n, D) in
+        `ravel_pytree`'s order (`flat_sizes`), carry [(h, c) (n, H)] and
+        obs (n, obs_dim) -> (carry', mean (n, action_dim))."""
+        n, obs_dim = obs.shape
+        shapes = GaussianLSTMActor.flat_sizes(obs_dim, action_dim, layers)
+        parts = torch.split(thetas, [int(np.prod(s)) for s in shapes], dim=1)
+        parts = [p.reshape(n, *s) for p, s in zip(parts, shapes)]
+        x = norm(obs)[:, None, :]
+        new = []
+        for i, (h, c) in enumerate(carry):
+            b_hh, b_ih, w_hh, w_ih = parts[4 * i:4 * i + 4]
+            gates = (torch.bmm(x, w_ih) + b_ih[:, None]
+                     + torch.bmm(h[:, None], w_hh) + b_hh[:, None])[:, 0]
+            gi, gf, gg, go = torch.chunk(gates, 4, dim=-1)
+            c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+            h = torch.sigmoid(go) * torch.tanh(c)
+            new.append((h, c))
+            x = h[:, None]
+        b, w = parts[-2:]
+        return new, (torch.bmm(x, w) + b[:, None])[:, 0]
+
+
+class LSTMActor(_LSTMNet):
+    """Deterministic tanh-bounded LSTM actor of RDPG (reference LSTM_Actor,
+    actor.py:74-139): LSTM stack, max_action * tanh of a linear head."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 layers: Sequence[int] = (128, 128), max_action: float = 1.0):
+        super().__init__(obs_dim, action_dim, layers)
+        self.max_action = max_action
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             layers: Sequence[int] = (128, 128),
+             max_action: float = 1.0) -> "LSTMActor":
+        """`LSTMActor.init` (nets.py:590-599)."""
+        return cls(obs_dim, action_dim, layers, max_action).to(
+            generator.device)._init(generator)
+
+    def head(self, top: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.out(top)) * self.max_action
+
+    def step_act(self, norm: NormState, carry: Carry, obs: torch.Tensor):
+        carry, top = lstm_step(self.cells, carry, norm(obs))
+        return carry, self.head(top)
+
+    def seq_act(self, norm: NormState, obs_seq: torch.Tensor):
+        return self.head(self._seq(norm(obs_seq)))
+
+
+class LSTMV(_LSTMNet):
+    """Reference LSTM_V (critic.py:236-294)."""
+
+    def __init__(self, obs_dim: int, layers: Sequence[int] = (128, 128)):
+        super().__init__(obs_dim, 1, layers)
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int,
+             layers: Sequence[int] = (128, 128)) -> "LSTMV":
+        return cls(obs_dim, layers).to(generator.device)._init(generator)
+
+    def step_value(self, norm: NormState, carry: Carry, obs: torch.Tensor):
+        carry, top = lstm_step(self.cells, carry, norm(obs))
+        return carry, self.out(top)
+
+    def seq_value(self, norm: NormState, obs_seq: torch.Tensor):
+        return self.out(self._seq(norm(obs_seq)))
+
+
+class LSTMQ(_LSTMNet):
+    """Reference LSTM_Q (critic.py:170-234): the stack over [normalised
+    obs, action]."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 layers: Sequence[int] = (128, 128)):
+        super().__init__(obs_dim + action_dim, 1, layers)
+
+    @classmethod
+    def init(cls, generator: torch.Generator, obs_dim: int, action_dim: int,
+             layers: Sequence[int] = (128, 128)) -> "LSTMQ":
+        return cls(obs_dim, action_dim, layers).to(
+            generator.device)._init(generator)
+
+    def step_q(self, norm: NormState, carry: Carry, obs: torch.Tensor,
+               action: torch.Tensor):
+        x = torch.cat([norm(obs), action], dim=-1)
+        carry, top = lstm_step(self.cells, carry, x)
+        return carry, self.out(top)
+
+    def seq_q(self, norm: NormState, obs_seq: torch.Tensor,
+              action_seq: torch.Tensor):
+        return self.out(self._seq(torch.cat([norm(obs_seq), action_seq],
+                                            dim=-1)))

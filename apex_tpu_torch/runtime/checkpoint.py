@@ -13,10 +13,13 @@ leading leaves are, with weights stored (in, out):
 
 followed by the optimizer states, the rollout runner and the rng, which
 evaluation does not need. Reading the file needs numpy only.
-`save_checkpoint` writes the same list from the port's PPO, TD3, DDPG and
-ARS train states (the JAX `PPOTrainState`, `TD3TrainState`,
-`DPGTrainState` and `ARSTrainState` in their field order), so that a run
-directory of the port loads in the JAX package too.
+`save_checkpoint` writes the same list from the port's PPO, recurrent
+PPO, TD3, DDPG, RDPG and ARS train states (the JAX `PPOTrainState`,
+`RecurrentPPOState`, `TD3TrainState`, `DPGTrainState` and `ARSTrainState`
+in their field order), so that a run directory of the port loads in the
+JAX package too; `load_recurrent_ppo` reads a JAX `RecurrentPPOState`
+back into the port's (its LSTM cells store (in, 4H) weights, the port's
+(4H, in), as nn.LSTMCell does).
 """
 from __future__ import annotations
 
@@ -74,7 +77,17 @@ def _jax_params(net) -> list:
     of a net of `models/nets.py`: per dense layer (b, w (in, out)), dict
     keys sorted (GaussianFFActor: layers, log_std, mean; FFActor, FFV,
     FFQ: layers, out; DualQCritic: q1, q2, each layers, out; LinearActor:
-    l1, l2)."""
+    l1, l2; the LSTM nets: cells, [log_std,] out)."""
+    if hasattr(net, "cells"):
+        # LSTM nets: cells[i].{b_hh, b_ih, w_hh (H, 4H), w_ih (in, 4H)},
+        # then [log_std,] out
+        heads = [net.log_std] if getattr(net, "log_std", None) is not None \
+            else []
+        return ([x for cell in net.cells for x in (
+                    (cell.bias_hh, False), (cell.bias_ih, False),
+                    (cell.weight_hh, True), (cell.weight_ih, True))]
+                + [x for layer in (*heads, net.out)
+                   for x in ((layer.bias, False), (layer.weight, True))])
     if hasattr(net, "branches"):
         return [x for branch in net.branches for x in _jax_params(branch)]
     if hasattr(net, "l1"):
@@ -138,9 +151,15 @@ def _replay(replay) -> list:
                np.asarray(replay.size, np.int32)])
 
 
+def _carry(carry) -> list:
+    return [_np(x) for hc in carry for x in hc]
+
+
 def to_jax_leaves(state, env) -> list:
     """The leaf list of the JAX train state for the port's train state of
     PPO (fields actor, critic, norm, actor_opt, critic_opt, runner, rng),
+    recurrent PPO (the same fields, plain adam states, the runner with its
+    LSTM carries), RDPG (DDPG's fields with the episode ring),
     TD3 (actor, actor_target, behavior, critic, critic_target, norm,
     actor_opt, critic_opt, replay, runner, rng, update_count,
     param_noise_sigma), DDPG (actor, actor_target, critic, critic_target,
@@ -148,9 +167,20 @@ def to_jax_leaves(state, env) -> list:
     rng, total_steps)."""
     from apex_tpu_torch.agents.ars import ARSTrainState
     from apex_tpu_torch.agents.dpg import DPGTrainState
+    from apex_tpu_torch.agents.ppo_recurrent import RecurrentPPOState
     from apex_tpu_torch.agents.td3 import TD3TrainState
 
     key = _key(state.seed)
+    if isinstance(state, RecurrentPPOState):
+        r = state.runner
+        keys = state.jax_keys or (key, key)
+        return (_net(state.actor) + _net(state.critic) + _norm(state.norm)
+                + _adam_leaves(state.actor_opt, state.actor)
+                + _adam_leaves(state.critic_opt, state.critic)
+                + env.checkpoint_leaves(r.env_state, r.obs)
+                + [_np(r.obs), _np(r.traj_len), _np(r.ep_return)]
+                + _carry(r.actor_carry) + _carry(r.critic_carry)
+                + [np.array(k, np.uint32) for k in keys])
     if isinstance(state, ARSTrainState):
         return ([_np(state.theta)] + _norm(state.norm)
                 + [key, np.asarray(state.total_steps, np.int32)])
@@ -189,10 +219,75 @@ def save_checkpoint(path: str, state, env,
     return full
 
 
+def _read(path: str, name: str = "checkpoint.pkl") -> list:
+    full = path if path.endswith(".pkl") else os.path.join(path, name)
+    with open(full, "rb") as f:
+        return pickle.load(f)
+
+
+@torch.no_grad()
+def restore_recurrent_ppo(state, leaves: Sequence[np.ndarray], env):
+    """Write the leaves of a JAX `RecurrentPPOState` (as `to_jax_leaves`
+    lists them) into a port `RecurrentPPOState` of the same configuration,
+    e.g. `RecurrentPPO(env, cfg).init(0)`, in place: nets, normaliser,
+    both adam states, the runner with its env state (for envs with
+    `state_from_checkpoint_leaves`) and LSTM carries, and the two rng
+    leaves, which `to_jax_leaves` writes back as read. Returns the
+    state."""
+    want = len(to_jax_leaves(state, env))
+    if len(leaves) != want:
+        raise ValueError(f"checkpoint has {len(leaves)} leaves, the "
+                         f"recurrent PPO state {want}")
+    it = iter(leaves)
+
+    def put(t: torch.Tensor, transpose: bool = False) -> None:
+        x = np.asarray(next(it))
+        x = x.T if transpose else x
+        if tuple(x.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf of shape {x.shape} for a "
+                             f"tensor of shape {tuple(t.shape)}")
+        t.copy_(torch.as_tensor(np.array(x, order="C"), dtype=t.dtype))
+
+    for net in (state.actor, state.critic):
+        for p, tr in _jax_params(net):
+            put(p, tr)
+    for t in (state.norm.mean, state.norm.var, state.norm.count):
+        put(t)
+    for opt, net in ((state.actor_opt, state.actor),
+                     (state.critic_opt, state.critic)):
+        opt.count = int(next(it))
+        index = {id(p): i for i, p in enumerate(opt.params)}
+        order = [(index[id(p)], tr) for p, tr in _jax_params(net)]
+        for moments in (opt.mu, opt.nu):
+            for i, tr in order:
+                put(moments[i], tr)
+    r = state.runner
+    n_env = len(env.checkpoint_leaves(r.env_state, r.obs))
+    env_leaves = [next(it) for _ in range(n_env)]
+    if not hasattr(env, "state_from_checkpoint_leaves"):
+        raise ValueError(f"{type(env).__name__} cannot restore its env "
+                         "state from checkpoint leaves")
+    r.env_state = env.state_from_checkpoint_leaves(env_leaves)
+    for t in (r.obs, r.traj_len, r.ep_return):
+        put(t)
+    for h, c in (*r.actor_carry, *r.critic_carry):
+        put(h)
+        put(c)
+    state.jax_keys = [np.asarray(next(it), np.uint32) for _ in range(2)]
+    return state
+
+
 def load_checkpoint(path: str, learn_stddev: bool = False,
                     name: str = "checkpoint.pkl") -> CheckpointState:
     """Read <path>/<name> (or a .pkl path) written by the JAX package."""
-    full = path if path.endswith(".pkl") else os.path.join(path, name)
-    with open(full, "rb") as f:
-        leaves = pickle.load(f)
-    return from_jax_leaves(leaves, learn_stddev=learn_stddev)
+    return from_jax_leaves(_read(path, name), learn_stddev=learn_stddev)
+
+
+def load_recurrent_ppo(path: str, agent, seed: int = 0,
+                       name: str = "checkpoint.pkl"):
+    """A port `RecurrentPPOState` from <path>/<name> (or a .pkl path), a
+    JAX `RecurrentPPOState`'s leaves, through a template
+    `agent.init(seed)` (as the JAX package's `load_checkpoint(path,
+    RecurrentPPO(...).init(0))`)."""
+    return restore_recurrent_ppo(agent.init(seed), _read(path, name),
+                                 agent.env)

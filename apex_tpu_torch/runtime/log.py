@@ -8,7 +8,8 @@ Port of `apex_tpu/runtime/log.py` (reference util/log.py:11-91):
   * a writer with a `.dir` attribute. The JAX package writes TensorBoard
     events when tensorboard is installed; this writer appends
     `tag,step,value` lines to `scalars.csv` in the run dir and needs
-    nothing beyond the standard library.
+    nothing beyond the standard library;
+  * `parse_previous`, which continues a curriculum from a previous run.
 """
 from __future__ import annotations
 
@@ -59,3 +60,30 @@ def create_logger(args) -> ScalarWriter:
     with open(os.path.join(output_dir, "experiment.pkl"), "wb") as f:
         pickle.dump(arg_dict, f)
     return ScalarWriter(output_dir)
+
+
+# the env-defining keys a continuation inherits (util/log.py:74-91)
+INHERITED = ("env_name", "traj", "simrate", "command_profile",
+             "input_profile", "learn_gains", "history", "no_delta",
+             "ik_baseline", "mirror")
+
+
+def parse_previous(args):
+    """Curriculum continuation (`parse_previous`, apex_tpu/runtime/log.py:
+    75-95; reference util/log.py:74-91): with `args.previous` set, the
+    env-defining keys of that run's experiment.pkl replace the arguments'
+    own, so that the new run sees the same observation and action spaces;
+    `exchange_reward` swaps the reward and renames the run to the previous
+    run's name + "_NEW-" + the reward."""
+    if getattr(args, "previous", None) is None:
+        return args
+    with open(os.path.join(args.previous, "experiment.pkl"), "rb") as f:
+        prev = pickle.load(f)
+    for key in INHERITED:
+        if key in prev:
+            setattr(args, key, prev[key])
+    if getattr(args, "exchange_reward", None):
+        args.reward = args.exchange_reward
+        args.run_name = (prev.get("run_name", "run") + "_NEW-"
+                         + str(args.reward))
+    return args

@@ -13,7 +13,9 @@ noise terrain, 5k_speed_reward, dyn-rand off, 60 substeps;
 PPO iterations of `python -m apex_tpu_torch ppo` at the training fleet
 and one each on three new env configurations, and Walker2d through the
 fleet tier (K2 + K3) under PPO, TD3, DDPG and ARS and TD3 on Cassie
-through K1 --
+through K1, and the recurrent learners (the committed recurrent PPO
+checkpoint held to JAX, `ppo --recurrent` on Walker2d and Cassie, `rdpg`
+and `ars --recurrent`) --
 after building the hand-written CUDA kernels from `apex_tpu_torch/csrc/`
 and holding each against its plain PyTorch version on the card. Phases,
 each printed with its seconds as it ends:
@@ -99,6 +101,20 @@ each printed with its seconds as it ends:
              iterations and an eval, counted; run dir name and checkpoint
   ddpg, ars  `python -m apex_tpu_torch ddpg` and `ars` on Walker2d at the
              CLI's defaults, one iteration each, counted
+  recurrent_ppo_walker
+             `curves/recurrent_ppo_walker_seed0_ckpt` evaluated (256 envs,
+             400 steps) on JAX's seed-42 reset draws, held within 1.8 % of
+             JAX's return, and on the port's own; two iterations of `ppo
+             --recurrent` on Walker2d at 256 envs; each counted, the run
+             dir loading back
+  recurrent_ppo_cassie
+             one `ppo --recurrent --mirror` iteration on Cassie-v0 (64
+             envs, K1), counted
+  rdpg, ars_recurrent
+             `rdpg` (64 envs, 400-step episodes, 8 of the CLI's 80 BPTT
+             updates, each timed; the recurrent evaluation) and `ars
+             --recurrent` on Walker2d at the CLI's widths, one iteration
+             each, counted
   suites_mk4 the eval battery's suites on mk4_hardened through the port's
              entry points (`runtime/eval_suites.py`): perturbation on the
              full 8 x 14 x 4 grid (448 envs, 88 steps; survivors at 25 N,
@@ -119,6 +135,7 @@ failure raises: the script exits non-zero and prints no verdict.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -1753,6 +1770,207 @@ def ars_walker():
 
 
 # ---------------------------------------------------------------------------
+# the recurrent learners: RecurrentPPO, RDPG and ARS with an LSTM policy
+# ---------------------------------------------------------------------------
+
+RECURRENT_CKPT = "curves/recurrent_ppo_walker_seed0_ckpt"
+# JAX's seed-42 reset draws and returns (scripts/export_recurrent_draws.py)
+RECURRENT_DRAWS = "curves/jax_eval_draws/recurrent_ppo_walker.npz"
+RECURRENT_LEAVES = 80              # the JAX RecurrentPPOState of Walker2d
+RPPO_STEPS, RPPO_ITR, RPPO_NORM_STEPS = 256 * 32, 2, 10000
+# Cassie-v0: 64 envs, chunks of 16 steps, a 100-step evaluation
+RPPO_CASSIE_ENVS, RPPO_CASSIE_T, RPPO_CASSIE_NORM, RPPO_CASSIE_TRAJ = (
+    64, 16, 8, 100)
+RDPG_UPDATES = 8                   # of the CLI's 80 (rdpg_updates)
+
+
+def recurrent_ppo_walker(dev):
+    """The committed recurrent PPO checkpoint (Walker2d, 256 envs) loaded
+    into the port and evaluated as `RecurrentPPO._evaluate` does (a fresh
+    fleet, 400 steps without resets, the first episode's return): on the
+    reset draws of JAX's seed-42 evaluation, held within EVAL_BOUND of
+    JAX's return, and on the port's own seed-42 draws; each counted (a
+    reset launches nothing, a step 4 K2 and 4 K3). Then two iterations of
+    `python -m apex_tpu_torch ppo --env_name Walker2d --recurrent
+    --num_procs 256 --num_steps 8192` (the 39-step burn-in, per iteration
+    a 32-step chunk, the BPTT update and the 400-step evaluation),
+    counted; its run dir loads back into the port's RecurrentPPOState."""
+    from apex_tpu_torch.agents.ppo_recurrent import RecurrentPPO
+    from apex_tpu_torch.envs.walker2d import WalkerResetNoise
+    from apex_tpu_torch.runtime.checkpoint import (load_recurrent_ppo,
+                                                   to_jax_leaves)
+
+    with np.load(RECURRENT_DRAWS) as f:
+        d = {k: f[k] for k in f}
+    B, T = int(d["batch"]), int(d["steps"])
+    env = Walker2dEnv(device=dev)
+    agent = RecurrentPPO(env, PPOConfig(num_envs=B, max_traj_len=T))
+    state = load_recurrent_ppo(RECURRENT_CKPT, agent)
+    want = {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * T,
+            "K3": WALKER_SUBSTEPS * T}
+    own = env.sample_reset_noise
+    env.sample_reset_noise = lambda gen, batch: WalkerResetNoise(
+        *(torch.as_tensor(d[f"reset0_{k}"].T.copy(), device=dev)
+          for k in ("qpos", "qvel")))
+    ev, secs, n = count_launches(lambda: agent._evaluate(
+        state, torch.Generator(device=dev)))
+    env.sample_reset_noise = own
+    check_counts("recurrent_ppo_walker eval", n, want)
+    ret, jax_ret = float(ev["ep_return"]), float(d["jax_return"])
+    rel = ret / jax_ret - 1.0
+    print(f"  recurrent_ppo_walker on JAX's seed-42 draws: return {ret!r}, "
+          f"length {float(ev['ep_len']):.2f}; JAX {jax_ret:.4f} ({rel:+.4%};"
+          f" JAX's seeds {d['seeds'].tolist()}: "
+          f"{[round(x, 4) for x in d['jax_seed_returns'].tolist()]}), "
+          f"{secs / T * 1e3:.2f} ms per policy step", flush=True)
+    if not abs(rel) <= EVAL_BOUND:
+        raise AssertionError(f"recurrent_ppo_walker: return {ret} is "
+                             f"{rel:+.4%} from JAX's {jax_ret}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    own_ev, _, n_own = count_launches(lambda: agent._evaluate(state, gen))
+    check_counts("recurrent_ppo_walker eval (own draws)", n_own, want)
+
+    steps = RPPO_NORM_STEPS // B + RPPO_ITR * (RPPO_STEPS // B + T)
+    cli_want = {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * steps,
+                "K3": WALKER_SUBSTEPS * steps}
+
+    def reload(run_dir):
+        back = load_recurrent_ppo(run_dir, RecurrentPPO(
+            Walker2dEnv(device=dev), PPOConfig(num_envs=B)))
+        return len(to_jax_leaves(back, env))
+
+    (cli_s, args, scalars, leaves), n_back = run_cli(
+        ["ppo", "--recurrent", "--num_procs", str(B), "--num_steps",
+         str(RPPO_STEPS), "--n_itr", str(RPPO_ITR), "--seed", "0"],
+        "Walker2d", cli_want, then=reload)
+    if not (args["recurrent"] and len(leaves) == n_back == RECURRENT_LEAVES):
+        raise AssertionError(f"recurrent ppo: {len(leaves)} leaves, "
+                             f"reloaded {n_back}")
+    for tag in ("Test/Return", "Train/Return", "Train/Mean KL Div"):
+        if len(scalars[tag]) != RPPO_ITR \
+                or not np.all(np.isfinite(scalars[tag])):
+            raise AssertionError(f"recurrent ppo: {tag} = {scalars[tag]}")
+    return dict(
+        jax_draws_return=f"{ret:.4f}", jax_return=f"{jax_ret:.4f}",
+        diff=f"{rel:+.4%}", ep_len=f"{float(ev['ep_len']):.2f}",
+        own_draws_return=f"{float(own_ev['ep_return']):.4f}",
+        eval_ms_per_policy_step=f"{secs / T * 1e3:.2f}",
+        eval_k2_launches=n["K2"], eval_k3_launches=n["K3"],
+        cli_seconds=f"{cli_s:.1f}", cli_policy_steps=steps,
+        cli_k2_launches=cli_want["K2"], cli_k3_launches=cli_want["K3"],
+        test_return=[f"{x:.4f}" for x in scalars["Test/Return"]],
+        kl=[f"{x:.5f}" for x in scalars["Train/Mean KL Div"]],
+        checkpoint_leaves=len(leaves))
+
+
+def recurrent_ppo_cassie():
+    """One `ppo --recurrent --mirror` iteration on Cassie-v0 (the
+    megakernel tier, 64 envs, an 8-step burn-in, a 16-step chunk, the
+    BPTT update with the mirror loss through mirror_clock, a 100-step
+    evaluation), counted: K1 once per substep; K2 once per env step, once
+    per auto-reset step of the chunk and once per fresh fleet (the
+    initial one, after the burn-in, the evaluation's); K3 never."""
+    B, T, norm_t, traj = (RPPO_CASSIE_ENVS, RPPO_CASSIE_T,
+                          RPPO_CASSIE_NORM, RPPO_CASSIE_TRAJ)
+    steps = norm_t + T + traj
+    want = {"K1": SIMRATE * steps, "K1-hfield": 0,
+            "K2": norm_t + 2 * T + traj + 3, "K3": 0}
+    secs, args, scalars, leaves = run_cli(
+        ["ppo", "--recurrent", "--mirror", "--num_procs", str(B),
+         "--num_steps", str(B * T), "--max_traj_len", str(traj), "--n_itr",
+         "1", "--input_norm_steps", str(B * norm_t)], "Cassie-v0", want)
+    for tag in ("Test/Return", "Train/Return", "Train/Mean KL Div"):
+        if not np.all(np.isfinite(scalars[tag])):
+            raise AssertionError(f"recurrent ppo cassie: {tag} = "
+                                 f"{scalars[tag]}")
+    return dict(seconds=f"{secs:.1f}", policy_steps=steps,
+                k1_launches=want["K1"], k2_launches=want["K2"],
+                test_return=f"{scalars['Test/Return'][0]:.4f}",
+                kl=f"{scalars['Train/Mean KL Div'][0]:.5f}",
+                checkpoint_leaves=len(leaves))
+
+
+@contextlib.contextmanager
+def rdpg_updates(n: int):
+    """`rdpg` through the CLI with `n` BPTT updates per iteration in place
+    of DPGConfig's 80 (apex.py has no flag for it), each update timed on
+    the card: yields the list of their seconds."""
+    from apex_tpu_torch.agents import dpg
+
+    config, update = dpg.DPGConfig, dpg.DPG._update_rnn
+    seconds = []
+
+    @dataclasses.dataclass(frozen=True)
+    class Config(config):
+        updates_per_iter: int = n
+
+    def timed(self, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = update(self, state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        return out
+
+    dpg.DPGConfig, dpg.DPG._update_rnn = Config, timed
+    try:
+        yield seconds
+    finally:
+        dpg.DPGConfig, dpg.DPG._update_rnn = config, update
+
+
+def rdpg_walker():
+    """`python -m apex_tpu_torch rdpg` on Walker2d at the CLI's widths (64
+    envs, 400-step episodes, batches of 16 episodes, layers (128, 128)):
+    one iteration (the random warm-up: one episode per env into the ring,
+    then RDPG_UPDATES BPTT updates, each timed: the eager BPTT takes ~2 s
+    per update, so the CLI's 80 would take ~160 s of the script) and the
+    recurrent evaluation (400 steps), counted: 4 K2 and 4 K3 per env
+    step."""
+    steps = 400 + 400
+    with rdpg_updates(RDPG_UPDATES) as update_s:
+        secs, _, scalars, leaves = run_cli(
+            ["rdpg", "--max_timesteps", str(400 * 64)], "Walker2d-v0",
+            {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * steps,
+             "K3": WALKER_SUBSTEPS * steps})
+    if len(update_s) != RDPG_UPDATES:
+        raise AssertionError(f"rdpg: {len(update_s)} updates, want "
+                             f"{RDPG_UPDATES}")
+    for tag in ("Test/Return", "Misc/Critic Loss"):
+        if not np.all(np.isfinite(scalars[tag])):
+            raise AssertionError(f"rdpg: {tag} = {scalars[tag]}")
+    print(f"  rdpg: {RDPG_UPDATES} BPTT updates of 16 episodes x 400 steps "
+          f"(the CLI's 80 cut), {np.mean(update_s) * 1e3:.1f} ms each",
+          flush=True)
+    return dict(seconds=f"{secs:.1f}", env_steps=steps,
+                updates_per_iter=RDPG_UPDATES,
+                ms_per_update=f"{np.mean(update_s) * 1e3:.1f}",
+                k2_launches=WALKER_SUBSTEPS * steps,
+                eval_return=f"{scalars['Test/Return'][0]:.4f}",
+                critic_loss=f"{scalars['Misc/Critic Loss'][0]:.5f}",
+                checkpoint_leaves=len(leaves))
+
+
+def ars_recurrent_walker():
+    """`python -m apex_tpu_torch ars --recurrent` on Walker2d at the CLI's
+    defaults (64 directions, hidden 32: an LSTM policy of layers (32,
+    32)): one iteration, 128 envs for 400 steps, 4 K2 and 4 K3 per
+    step."""
+    secs, _, scalars, leaves = run_cli(
+        ["ars", "--recurrent", "--n_itr", "1"], "Walker2d-v0",
+        {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * 400,
+         "K3": WALKER_SUBSTEPS * 400})
+    theta = np.asarray(leaves[0])
+    if not (np.all(np.isfinite(theta)) and np.any(theta != 0)):
+        raise AssertionError("ars --recurrent: θ did not move or is not "
+                             "finite")
+    return dict(seconds=f"{secs:.1f}", envs=128, env_steps=400,
+                theta_size=theta.size, k2_launches=WALKER_SUBSTEPS * 400,
+                mean_return=f"{scalars['Test/Return'][0]:.4f}")
+
+
+# ---------------------------------------------------------------------------
 # the eval battery's suites (runtime/eval_suites.py)
 # ---------------------------------------------------------------------------
 
@@ -2141,6 +2359,16 @@ def main() -> int:
     phase("ddpg", t0, **ddpg_walker())
     t0 = time.time()
     phase("ars", t0, **ars_walker())
+
+    # the recurrent learners
+    t0 = time.time()
+    phase("recurrent_ppo_walker", t0, **recurrent_ppo_walker(dev))
+    t0 = time.time()
+    phase("recurrent_ppo_cassie", t0, **recurrent_ppo_cassie())
+    t0 = time.time()
+    phase("rdpg", t0, **rdpg_walker())
+    t0 = time.time()
+    phase("ars_recurrent", t0, **ars_recurrent_walker())
 
     # the eval battery's suites
     for tag, ckpt in (("mk4", CKPT), ("mk5c", TERRAIN_CKPTS["mk5c"][0])):

@@ -4,8 +4,9 @@ run-directory name (the hash of the arguments) and the same
 experiment.pkl; a run of the mk5c reward configuration without dyn-rand
 writes a run directory that the JAX package loads; the learners beyond
 PPO run on the CPU when asked and name their run directories as apex.py
-does; the configurations not ported yet raise; and eval's suites, dumps,
-gait recording and scripted drive run on the CPU at a tiny size."""
+does; the recurrent learners and the curriculum continuation write run
+directories that the JAX package loads; and eval's suites, dumps, gait
+recording and scripted drive run on the CPU at a tiny size."""
 import pickle
 import sys
 
@@ -56,12 +57,21 @@ DDPG = ["ddpg", "--env_name", "Walker2d-v0", "--c_lr", "3e-4",
         "--max_traj_len", "300"]
 ARS = ["ars", "--env_name", "Walker2d-v0", "--deltas", "64", "--algo", "v2",
        "--n_itr", "1"]
+# the recurrent learners and the curriculum continuation (from a committed
+# run dir, with a new reward)
+PPO_RECURRENT = ["ppo", "--env_name", "Walker2d", "--recurrent",
+                 "--num_procs", "256"]
+PREVIOUS = ["ppo", "--previous", CKPT, "--exchange_reward",
+            "5k_speed_reward", "--num_procs", "256"]
+RDPG = ["rdpg", "--env_name", "Walker2d-v0", "--c_lr", "3e-4"]
+ARS_RECURRENT = ["ars", "--env_name", "Walker2d-v0", "--recurrent",
+                 "--hidden_size", "16"]
 
 # the run_experiment each CLI calls per subcommand: (JAX module, port
 # module, the JAX call's keyword arguments besides the namespace)
 ENTRY = {"ppo": (jax_ppo, port_ppo), "td3_sync": (jax_td3, port_td3),
          "td3_async": (jax_td3, port_td3), "ddpg": (jax_dpg, port_dpg),
-         "ars": (jax_ars, port_ars)}
+         "rdpg": (jax_dpg, port_dpg), "ars": (jax_ars, port_ars)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,15 +86,20 @@ def _one_torch_thread():
 
 
 @pytest.mark.parametrize("argv", [MK4_HARDENED, MK5C, TRAJ, STANDING,
-                                  GAINS, TD3_SYNC, TD3_ASYNC, DDPG, ARS],
+                                  GAINS, TD3_SYNC, TD3_ASYNC, DDPG, ARS,
+                                  PPO_RECURRENT, PREVIOUS, RDPG,
+                                  ARS_RECURRENT],
                          ids=["mk4_hardened", "mk5c", "traj", "standing",
                               "gains", "td3_sync", "td3_async", "ddpg",
-                              "ars"])
+                              "ars", "ppo_recurrent", "previous", "rdpg",
+                              "ars_recurrent"])
 def test_ppo_namespace_matches_apex_py(argv, monkeypatch):
     """The namespace each CLI hands to run_experiment (stubbed), for ppo
-    and the learners beyond it: the same keys in the same order and the
-    same values, so the same args_hash and pickled keys, and the same
-    mode (async, recurrent); the port passes its device beside it."""
+    (also `--recurrent`, and `--previous` with `--exchange_reward`, after
+    parse_previous) and the learners beyond it: the same keys in the same
+    order and the same values, so the same args_hash and pickled keys,
+    and the same mode (async, recurrent); the port passes its device
+    beside it."""
     got = {}
     jax_mod, port_mod = ENTRY[argv[0]]
     monkeypatch.setattr(jax_mod, "run_experiment",
@@ -105,6 +120,10 @@ def test_ppo_namespace_matches_apex_py(argv, monkeypatch):
     assert got["device"] == "cuda"
     if argv[0].startswith("td3"):     # what chip_smoke.py's td3_cassie reads
         assert tuple(sorted(theirs)) == TD3_KEYS
+    if argv is PREVIOUS:              # the committed run's env, a new name
+        assert (ours["env_name"], ours["reward"]) == ("Cassie-v0",
+                                                      "5k_speed_reward")
+        assert ours["run_name"].endswith("_NEW-5k_speed_reward")
 
 
 def test_mk5c_reward_run_dir_loads_in_apex_py(tmp_path):
@@ -191,12 +210,75 @@ def test_learner_run_dirs_are_named_as_apex_py(argv, tmp_path):
     assert "Test/Return" in (run_dir / "scalars.csv").read_text()
 
 
-@pytest.mark.parametrize("argv", [["rdpg"], ["ars", "--recurrent"],
-                                  ["ppo", "--recurrent"]],
-                         ids=["rdpg", "ars_recurrent", "ppo_recurrent"])
-def test_unported_learners_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError):
-        port_main([*argv, "--device", "cpu", "--logdir", str(tmp_path)])
+RECURRENT_RUNS = {
+    "rdpg": ["rdpg", "--env_name", "PointMass-v0", "--num_procs", "2",
+             "--max_traj_len", "8", "--max_timesteps", "16"],
+    "ars_recurrent": ["ars", "--recurrent", "--env_name", "Walker2d-v0",
+                      "--deltas", "2", "--deltas_used", "1", "--n_itr", "1",
+                      "--max_traj_len", "4", "--hidden_size", "8"],
+    "ppo_recurrent": ["ppo", "--recurrent", "--env_name", "PointMass-v0",
+                      "--num_procs", "4", "--num_steps", "16",
+                      "--max_traj_len", "6", "--minibatch_size", "2",
+                      "--n_itr", "1", "--input_norm_steps", "8"],
+    "ppo_previous": ["ppo", "--exchange_reward", "clock", "--num_procs",
+                     "4", "--num_steps", "16", "--max_traj_len", "6",
+                     "--n_itr", "1", "--input_norm_steps", "8"],
+}
+
+
+@pytest.mark.parametrize("case", list(RECURRENT_RUNS))
+def test_recurrent_learners_run_dirs_load_in_apex_py(case, tmp_path):
+    """The configurations the port refused until the recurrent learners
+    came (`rdpg`, `ars --recurrent`, `ppo --recurrent`, `ppo --previous`)
+    each run on the CPU (a few envs, one iteration) into a run directory
+    named by JAX's hash of its arguments, whose checkpoint restores into
+    the JAX package's template of the same configuration leaf for leaf
+    (`ppo --previous`: a continuation of a feed-forward PointMass-v0 run
+    dir named "walk", which inherits its env, is renamed by the new
+    reward, and loads in JAX's load_experiment)."""
+    from apex_tpu.agents import ppo_recurrent as jax_rppo
+    from apex_tpu.envs.registry import env_factory as jax_env_factory
+    from apex_tpu.runtime.checkpoint import load_checkpoint as jax_load
+
+    argv = RECURRENT_RUNS[case]
+    env_name = "Walker2d-v0" if case == "ars_recurrent" else "PointMass-v0"
+    if case == "ppo_previous":
+        prev = tmp_path / "prev"
+        assert port_main(["ppo", "--device", "cpu", "--env_name",
+                          "PointMass-v0", "--mirror", "--num_procs", "4",
+                          "--num_steps", "16", "--max_traj_len", "6",
+                          "--n_itr", "1", "--input_norm_steps", "8",
+                          "--run_name", "walk", "--logdir", str(prev)]) == 0
+        (prev_dir,) = (prev / "PointMass-v0").iterdir()
+        argv = [*argv, "--previous", str(prev_dir)]
+    rc = port_main([*argv, "--device", "cpu", "--logdir",
+                    str(tmp_path / "runs")])
+    assert rc == 0
+    (run_dir,) = (tmp_path / "runs" / env_name).iterdir()
+    with open(run_dir / "experiment.pkl", "rb") as f:
+        args = pickle.load(f)
+    assert "cmd" not in args and "device" not in args
+    assert run_dir.name == f"{jax_log.args_hash(args)}-seed0"
+    with open(run_dir / "checkpoint.pkl", "rb") as f:
+        saved = pickle.load(f)
+    jenv = jax_env_factory(args["env_name"])
+    if case == "ppo_previous":
+        assert (args["env_name"], args["mirror"], args["run_name"]) == (
+            "PointMass-v0", True, "walk_NEW-clock")
+        _, restored, _ = jax_load_experiment(str(run_dir))
+    elif case == "ppo_recurrent":
+        restored = jax_load(str(run_dir), jax_rppo.RecurrentPPO(
+            jenv, jax_ppo.PPOConfig(num_envs=4)).init(0))
+    elif case == "rdpg":
+        restored = jax_load(str(run_dir), jax_dpg.DPG(
+            jenv, jax_dpg.DPGConfig(num_envs=2, max_traj_len=8,
+                                    recurrent=True)).init(0))
+    else:
+        restored = jax_load(str(run_dir), jax_ars.ARS(
+            jenv, jax_ars.ARSConfig(hidden_size=8, recurrent=True)).init(0))
+    for a, b in zip(jax.tree_util.tree_leaves(restored), saved):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert "Test/Return" in (run_dir / "scalars.csv").read_text()
 
 
 # apex.py eval's flags, each suite and the dump, gait and drive options

@@ -468,3 +468,75 @@ def euler2quat_rows(tilts, device):
     y = torch.tensor([t[0] for t in tilts], dtype=torch.float32)
     x = torch.tensor([t[1] for t in tilts], dtype=torch.float32)
     return euler2quat(z=torch.zeros_like(y), y=y, x=x).to(device)
+
+
+def test_recurrent_ppo_walker_iteration_on_the_card_matches_the_cpu(cuda):
+    """One recurrent PPO iteration on Walker2d from the committed
+    `curves/recurrent_ppo_walker_seed0_ckpt` (its 256-env runner and
+    carries), on the card and on the CPU with the same inputs: a
+    deterministic rollout chunk of 4 steps (the same auto-reset draws on
+    both; 4 K2 and 4 K3 launches per step on the card) whose observations
+    agree row by row at the per-step tolerances of
+    `chip_smoke.walker_step_vs_plain` (qpos rows 1e-4 / 2e-5, qvel rows
+    5e-2 / 2e-2) and rewards at 1e-2 (the qpos tolerance over the step's
+    0.008 s), then `_update` on the card's chunk on both devices with the
+    same permutations: metrics within 1e-4 relative (1e-6 absolute), and
+    parameters within 1e-5 relative plus 2e-3 of lr per optimiser step
+    (Adam's amplification of near-zero gradient entries, as
+    tests/test_torch_ppo.py bounds it)."""
+    from apex_tpu_torch.agents.ppo import PPOConfig
+    from apex_tpu_torch.agents.ppo_recurrent import (RecurrentPPO,
+                                                     RecurrentRollout)
+    from apex_tpu_torch.device import count_launches
+    from apex_tpu_torch.envs.walker2d import Walker2dEnv
+    from apex_tpu_torch.runtime import checkpoint
+
+    T, cfg = 4, PPOConfig(num_envs=256, num_steps=256 * 4, max_traj_len=400)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    resets = [Walker2dEnv(device="cpu").sample_reset_noise(gen, 256)
+              for _ in range(T)]
+    perms = [torch.randperm(256, generator=gen) for _ in range(cfg.epochs)]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        env = Walker2dEnv(device=dev)
+        agent = RecurrentPPO(env, cfg)
+        state = checkpoint.load_recurrent_ppo(
+            "curves/recurrent_ppo_walker_seed0_ckpt", agent)
+        queue = list(resets)
+        env.sample_reset_noise = lambda g, b, q=queue, d=dev: type(q[0])(
+            *(x.to(d) for x in q.pop(0)))
+        if dev.type == "cuda":
+            (_, traj), _, n = count_launches(lambda: agent._rollout(
+                state, state.runner, 1.0, deterministic=True))
+            assert (n["K2"], n["K3"]) == (4 * T, 4 * T)
+        else:
+            _, traj = agent._rollout(state, state.runner, 1.0,
+                                     deterministic=True)
+        runs[dev.type] = agent, state, traj
+    obs_g, obs_c = runs["cuda"][2].obs.cpu(), runs["cpu"][2].obs
+    torch.testing.assert_close(obs_g[..., :8], obs_c[..., :8], rtol=1e-4,
+                               atol=2e-5)
+    torch.testing.assert_close(obs_g[..., 8:], obs_c[..., 8:], rtol=5e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(runs["cuda"][2].reward.cpu(),
+                               runs["cpu"][2].reward, rtol=1e-2, atol=1e-2)
+
+    chunk = runs["cuda"][2]
+    metrics, leaves = {}, {}
+    for name, dev in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        agent, state, _ = runs[name]
+        traj = RecurrentRollout(*(x.to(dev) for x in chunk))
+        r = state.runner
+        before = state.actor_opt.count
+        m = agent._update(state, traj, r.actor_carry, r.critic_carry, 1.0,
+                          [p.to(dev) for p in perms])
+        metrics[name] = {k: float(v) for k, v in m.items()}
+        leaves[name] = checkpoint.to_jax_leaves(state, agent.env)[:20]
+        steps = state.actor_opt.count - before
+    for k, v in metrics["cpu"].items():
+        np.testing.assert_allclose(metrics["cuda"][k], v, rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+    for a, b in zip(leaves["cuda"], leaves["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=2e-3 * cfg.lr * steps)

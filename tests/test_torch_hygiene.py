@@ -99,21 +99,22 @@ def test_cli_without_cuda_fails(tmp_path):
 
 
 def test_unported_configurations_raise(tmp_path):
-    """What the port does not run yet raises NotImplementedError: the
-    recurrent learners (`ppo --recurrent`, `rdpg`, `ars --recurrent`) and
-    the curriculum continuation (`ppo --previous`). The CassieEnv switches
-    that stood here build (the exact estimator, the min profile, the clock
-    reward, a history), and an unknown terrain or env name is a
-    ValueError, as in JAX."""
-    from apex_tpu_torch.__main__ import main as port_main
+    """No configuration of the CLI is refused as not ported: the recurrent
+    learners (`ppo --recurrent`, `rdpg`, `ars --recurrent`) and the
+    curriculum continuation (`ppo --previous`) run (tests/test_torch_cli.py
+    runs each), and the CLI and the learners hold no NotImplementedError.
+    The CassieEnv switches that stood here build (the exact estimator,
+    the min profile, the clock reward, a history), and an unknown terrain
+    or env name is a ValueError, as in JAX."""
+    import inspect
+
+    import apex_tpu_torch.__main__ as cli
+    from apex_tpu_torch.agents import ars, dpg, ppo
     from apex_tpu_torch.envs.cassie import CassieEnv
     from apex_tpu_torch.envs.registry import env_factory
 
-    for argv in (["ppo", "--recurrent"], ["rdpg"], ["ars", "--recurrent"],
-                 ["ppo", "--previous", str(tmp_path)]):
-        with pytest.raises(NotImplementedError):
-            port_main([*argv, "--device", "cpu", "--logdir",
-                       str(tmp_path)])
+    for mod in (cli, ars, dpg, ppo):
+        assert "NotImplementedError" not in inspect.getsource(mod)
     for kwargs, size in (({"estimator": "exact"}, 50),
                          ({"input_profile": "min"}, 25),
                          ({"reward": "clock"}, 50), ({"history": 1}, 100)):

@@ -342,8 +342,12 @@ def test_ddpg_updates_match_jax():
     n = 24 + 3 + 13 + 13
     _assert_leaves_close(checkpoint.to_jax_leaves(state, env)[:n],
                          jax.tree_util.tree_leaves(jnew)[:n], "ddpg")
-    with pytest.raises(NotImplementedError):
-        dpg.DPG(env, dpg.DPGConfig(recurrent=True))
+    # the recurrent configuration builds RDPG's nets and episode ring
+    # (tests/test_torch_rdpg.py holds it to JAX)
+    rstate = dpg.DPG(env, dpg.DPGConfig(recurrent=True, episode_capacity=4,
+                                        max_traj_len=5)).init(0)
+    assert type(rstate.actor).__name__ == "LSTMActor"
+    assert rstate.replay.obs.shape == (4, 5, OBS)
 
 
 def test_param_noise_and_async_noise_scales():
@@ -441,8 +445,12 @@ def test_ars_iteration_matches_jax(returns):
     assert state.total_steps == int(jnew.total_steps)
     for k in ("mean_return", "max_return", "sigma_r"):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-6)
-    with pytest.raises(NotImplementedError):
-        ars.ARS(PointMassEnv(device="cpu"), ars.ARSConfig(recurrent=True))
+    # the LSTM policy's θ is ravel_pytree's of JAX's GaussianLSTMActor
+    # (tests/test_torch_recurrent.py holds its iteration to JAX)
+    rcfg = dict(cfg, recurrent=True)
+    assert ars.ARS(PointMassEnv(device="cpu"),
+                   ars.ARSConfig(**rcfg)).dim == jax_ars.ARS(
+        JaxPointMassEnv(), jax_ars.ARSConfig(**rcfg))._dim
 
 
 def test_ars_rollout_keeps_dead_envs_stepping():

@@ -9,6 +9,7 @@ sides the same numpy-drawn inputs and the JAX-initialised weights
 (`runtime.checkpoint.from_jax_leaves`); only the learning runs use the
 port's own random draws.
 """
+import argparse
 import pickle
 
 import jax
@@ -407,9 +408,14 @@ def test_cli_run_dir_loads_in_both_packages(tmp_path):
     assert jstate.runner.env_state.phys.qpos.shape == (2, 35)
     scalars = (run_dir / "scalars.csv").read_text().splitlines()
     assert any(s.startswith("Test/Return,0,") for s in scalars)
-    for flag in ("--recurrent", "--previous=x"):
-        with pytest.raises(NotImplementedError):
-            port_main(["ppo", "--device", "cpu", flag])
+    # a continuation from this run dir inherits its env keys as JAX's does
+    # (tests/test_torch_recurrent.py::test_parse_previous_matches_jax)
+    ns = lambda: argparse.Namespace(previous=str(run_dir),
+                                    env_name="PointMass-v0", mirror=False,
+                                    exchange_reward=None)
+    cont = log.parse_previous(ns())
+    assert (cont.env_name, cont.mirror) == ("Cassie-v0", True)
+    assert vars(cont) == vars(jax_log.parse_previous(ns()))
 
 
 # ---------------------------------------------------------------------------
