@@ -7,9 +7,9 @@ evaluation, `--suite {commands,perturb,mission,sensitivity,5k,compare}`,
 `--drive`, `--gait`, `--out`). They run on the GPU; `--device cpu` runs
 the plain PyTorch versions of the kernels on the CPU. `eval --seed` seeds
 the evaluation's draws; `eval --physics` picks the PD scan's tier (K1
-"megakernel" or "fleet");
-left out, and always for the learners, the device's default (megakernel
-on CUDA, fleet on the CPU). The run directory's name hashes the namespace
+"megakernel", "fleet", or "per_env", the per-env engine); left out, and
+always for the learners, the device's default (megakernel on CUDA, fleet
+on the CPU). The run directory's name hashes the namespace
 and experiment.pkl stores it, so the learners get apex.py's namespace:
 the subcommand and `--device` are taken out first. `ppo --previous`
 inherits the previous run's env keys (with `--exchange_reward`, a new
@@ -171,9 +171,9 @@ def main(argv=None) -> int:
     ev.add_argument("--drive_steps", type=int, default=300)
     ev.add_argument("--seed", type=int, default=42)
     ev.add_argument("--physics", type=str, default=None,
-                    choices=["megakernel", "fleet"],
+                    choices=["megakernel", "fleet", "per_env"],
                     help="PD scan tier (default: megakernel on CUDA, "
-                         "fleet on the CPU)")
+                         "fleet on the CPU; per_env: the per-env engine)")
     _device_args(ev)
     args = parser.parse_args(argv)
 

@@ -1,4 +1,5 @@
-// Batched inverse of small SPD matrices, batch-last (K3).
+// Batched inverse of small SPD matrices, batch-last (K3) and batch-first
+// (K3-bf).
 //
 // Replaces the Pallas TPU kernel `_spd_inverse_kernel` of
 // apex_tpu/ops/pallas_linalg.py (launched by `pallas_spd_inverse_bt`), which
@@ -20,7 +21,13 @@
 // neighbouring matrices, loads and stores them cooperatively (the kMats
 // envs of an entry are one 32-byte sector) and stages them in shared
 // memory, padded with the identity to a compile-time width W (8, 16 or 32,
-// the next at or above n; envs past B are identity too). Then each warp
+// the next at or above n; envs past B are identity too). The batch-first
+// route (K3-bf, replacing `pallas_spd_inverse`, which the per-env engine
+// reaches through `ops/linalg.py`'s custom vmap rule) reads and writes
+// (B, n, n), entry (i, j) of matrix b at (b * n + i) * n + j, through the
+// same staging: only the global addresses differ, so its output is the
+// batch-last kernel's bit for bit, and the JAX route's two transposes
+// around the kernel are not needed. Then each warp
 // inverts its matrix with lane c holding column c in W registers, every
 // loop unrolled at W:
 //   - Cholesky step j: the pivot comes from lane j by one shuffle (lane j
@@ -68,7 +75,14 @@ __device__ __forceinline__ void load_row(const float* row, int lo,
   }
 }
 
-template <int W>
+// global index of entry (i, j) of matrix b: batch-last (n, n, B) or
+// batch-first (B, n, n)
+template <bool kBatchFirst>
+__device__ __forceinline__ size_t entry(int b, int i, int j, int n, int B) {
+  return kBatchFirst ? ((size_t)b * n + i) * n + j : (size_t)(i * n + j) * B + b;
+}
+
+template <int W, bool kBatchFirst>
 __global__ void __launch_bounds__(kMats * 32)
     spd_inverse_kernel(const float* __restrict__ A, float* __restrict__ out,
                        int n, int B) {
@@ -91,7 +105,7 @@ __global__ void __launch_bounds__(kMats * 32)
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int i = i0 + (32 / W) * k;
-    v[k] = (in_b && i < n) ? A[(size_t)(i * n + j0) * B + b]
+    v[k] = (in_b && i < n) ? A[entry<kBatchFirst>(b, i, j0, n, B)]
                            : (i == j0 ? 1.f : 0.f);
   }
 #pragma unroll
@@ -177,34 +191,47 @@ __global__ void __launch_bounds__(kMats * 32)
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
     const int i = i0 + (32 / W) * k;
-    if (in_b && i < n) out[(size_t)(i * n + j0) * B + b] = v[k];
+    if (in_b && i < n) out[entry<kBatchFirst>(b, i, j0, n, B)] = v[k];
   }
 }
 
 }  // namespace
 
-template <int W>
+template <int W, bool kBatchFirst>
 static int launch(const float* A, float* out, int n, int B,
                   cudaStream_t stream) {
   const int smem = kMats * warp_floats<W>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      spd_inverse_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      spd_inverse_kernel<W, kBatchFirst>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (B + kMats - 1) / kMats;
-  spd_inverse_kernel<W><<<blocks, kMats * 32, smem, stream>>>(A, out, n, B);
+  spd_inverse_kernel<W, kBatchFirst>
+      <<<blocks, kMats * 32, smem, stream>>>(A, out, n, B);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K3 on `stream` at the smallest width of 8, 16 and 32 that holds
-// n; returns cudaGetLastError() as an int (0 = ok).
-extern "C" int apex_spd_inverse(const float* A, float* out, int n, int B,
-                                void* stream) {
+template <bool kBatchFirst>
+static int launch_any(const float* A, float* out, int n, int B,
+                      void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (n < 1 || n > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 8) return launch<8>(A, out, n, B, s);
-  if (n <= 16) return launch<16>(A, out, n, B, s);
-  return launch<32>(A, out, n, B, s);
+  if (n <= 8) return launch<8, kBatchFirst>(A, out, n, B, s);
+  if (n <= 16) return launch<16, kBatchFirst>(A, out, n, B, s);
+  return launch<32, kBatchFirst>(A, out, n, B, s);
+}
+
+// Launches K3 on `stream` at the smallest width of 8, 16 and 32 that holds
+// n; A and out are (n, n, B); returns cudaGetLastError() as an int (0 = ok).
+extern "C" int apex_spd_inverse(const float* A, float* out, int n, int B,
+                                void* stream) {
+  return launch_any<false>(A, out, n, B, stream);
+}
+
+// The same for batch-first A and out, (B, n, n) (K3-bf).
+extern "C" int apex_spd_inverse_bf(const float* A, float* out, int n, int B,
+                                   void* stream) {
+  return launch_any<true>(A, out, n, B, stream);
 }
 
 // Launch shape of the kernel for n on the current card: out[0..3] = shared
@@ -213,9 +240,9 @@ extern "C" int apex_spd_inverse(const float* A, float* out, int n, int B,
 extern "C" int apex_spd_inverse_info(int n, int* out) {
   if (n < 1 || n > 32) return static_cast<int>(cudaErrorInvalidValue);
   const int W = n <= 8 ? 8 : n <= 16 ? 16 : 32;
-  const void* fn = W == 8    ? (const void*)spd_inverse_kernel<8>
-                   : W == 16 ? (const void*)spd_inverse_kernel<16>
-                             : (const void*)spd_inverse_kernel<32>;
+  const void* fn = W == 8    ? (const void*)spd_inverse_kernel<8, false>
+                   : W == 16 ? (const void*)spd_inverse_kernel<16, false>
+                             : (const void*)spd_inverse_kernel<32, false>;
   out[0] = kMats * (2 * W * W + 4) * static_cast<int>(sizeof(float));
   out[1] = kMats;
   out[4] = W;

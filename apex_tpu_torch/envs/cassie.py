@@ -36,6 +36,7 @@ from apex_tpu_torch.envs.base import Env, to_batch_first
 from apex_tpu_torch.physics.cassie_sim import (
     DEFAULT_D_GAIN,
     DEFAULT_P_GAIN,
+    MOTOR_QPOS_IDX,
     MOTOR_QVEL_IDX,
     PD_TIERS,
     CassiePhysState,
@@ -236,8 +237,9 @@ class CassieEnv(Env):
     # masses, friction) to the observation
     omniscient: bool = False
     device: object = None
-    # physics tier of the PD scan: "megakernel" (K1), "fleet", or None for
-    # the device's default (megakernel on CUDA, fleet on the CPU)
+    # physics tier of the PD scan: "megakernel" (K1), "fleet", "per_env"
+    # (the per-env engine), or None for the device's default (megakernel
+    # on CUDA, fleet on the CPU)
     pd_tier: str | None = None
 
     def __post_init__(self):
@@ -465,7 +467,8 @@ class CassieEnv(Env):
         # populate the estimator from FK (the reference reset ends with
         # one step_pd to refresh cassie_state, cassie.py:665)
         est = estimate_state(self.model, phys,
-                             static_diag(self.model, params, phys))
+                             static_diag(self.model, params, phys,
+                                         self.pd_tier))
         return self._observe(state, est)
 
     def reset_for_test(self, batch: int):
@@ -488,7 +491,8 @@ class CassieEnv(Env):
             stance, mode, torch.zeros((10, batch), device=dev),
             torch.zeros((6, batch), device=dev), full(1.0))
         est = estimate_state(self.model, phys,
-                             static_diag(self.model, params, phys))
+                             static_diag(self.model, params, phys,
+                                         self.pd_tier))
         return self._observe(state, est)
 
     def update_speed_state(self, state: CassieEnvState, new_speed,
@@ -597,7 +601,8 @@ class CassieEnv(Env):
         # position-difference foot velocities (reference cassie.py:330-331);
         # the first substep's previous foot position is the FK of the
         # pre-step state (StepOut.kin is the input-qpos FK)
-        prev_foot0 = static_diag(m, state.params, state.phys).foot_pos
+        prev_foot0 = static_diag(m, state.params, state.phys,
+                                 self.pd_tier).foot_pos
         prev_pos_seq = torch.cat([prev_foot0[None], diag_seq.foot_pos[:-1]])
         foot_vel_seq = (diag_seq.foot_pos - prev_pos_seq) / m.timestep
 
@@ -677,12 +682,20 @@ class CassieEnv(Env):
         new_state, obs = self._observe(new_state, est)
         info = None
         if with_info:
+            # every key of the JAX step's info (envs/cassie.py:834-850);
+            # grf_seq is (simrate, 2, B)
+            dev = phys.qpos.device
             l_foot_frc, r_foot_frc = frc_seq.mean(dim=0)
             info = {"l_foot_frc": l_foot_frc, "r_foot_frc": r_foot_frc,
-                    "foot_pos": diag_seq.foot_pos[-1], "qpos": phys.qpos,
-                    "pd_target": target, "motor_pos": est.motor_position,
-                    "motor_vel": phys.qvel[const(
-                        MOTOR_QVEL_IDX, phys.qvel.device, torch.int64)],
+                    "height": height, "grf_seq": frc_seq,
+                    "foot_pos": diag_seq.foot_pos[-1],
+                    "est_lfoot_pos": est.left_foot_position,
+                    "est_rfoot_pos": est.right_foot_position,
+                    "qpos": phys.qpos, "pd_target": target,
+                    "motor_pos": phys.qpos[const(MOTOR_QPOS_IDX, dev,
+                                                 torch.int64)],
+                    "motor_vel": phys.qvel[const(MOTOR_QVEL_IDX, dev,
+                                                 torch.int64)],
                     "motor_torque": motor_torque}
         return new_state, obs, reward, terminated, info
 

@@ -146,7 +146,8 @@ class CassiePlayground(Env):
             time=zi.clone(), last_position=last.expand(3, batch).clone(),
             prev_action=torch.zeros((10, batch), device=dev))
         est = estimate_state(self.model, phys,
-                             static_diag(self.model, params, phys))
+                             static_diag(self.model, params, phys,
+                                         self.pd_tier))
         return state, self._obs(state, est)
 
     def _obs(self, state: PlaygroundState, est) -> torch.Tensor:

@@ -112,7 +112,8 @@ class CassieStandingEnv(Env):
         state = StandingState(phys=phys, phase=noise.phase.to(torch.float32),
                               counter=zi, time=zi.clone())
         est = estimate_state(self.model, phys,
-                             static_diag(self.model, self.params(B), phys))
+                             static_diag(self.model, self.params(B), phys,
+                                         self.pd_tier))
         return state, self._obs(est)
 
     def _obs(self, est) -> torch.Tensor:

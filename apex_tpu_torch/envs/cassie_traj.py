@@ -391,12 +391,25 @@ class CassieTrajEnv(Env):
                                qacc=torch.zeros((32, B), device=dev))
         state = dataclasses.replace(state, phys=phys)
         est = estimate_state(self.model, phys,
-                             static_diag(self.model, params, phys))
+                             static_diag(self.model, params, phys,
+                                         self.pd_tier))
         return self._observe(state, est)
 
     # ------------------------------------------------------------------
     def step(self, state: CassieTrajEnvState, action: torch.Tensor,
              noise: TrajStepNoise):
+        return self._step(state, action, noise, with_info=False)[:4]
+
+    def step_info(self, state: CassieTrajEnvState, action: torch.Tensor,
+                  noise: TrajStepNoise):
+        """`step`, and the JAX step's info diagnostics for the analysis
+        tools (envs/cassie_traj.py:456-466): (state, obs, reward,
+        terminated, info), info's entries batch-last, grf_seq (simrate, 2,
+        B)."""
+        return self._step(state, action, noise, with_info=True)
+
+    def _step(self, state: CassieTrajEnvState, action: torch.Tensor,
+              noise: TrajStepNoise, with_info: bool):
         m = self.model
         act = action.T                                    # (action_size, B)
         # PD baseline: neutral offset, reference motors (delta mode), or
@@ -420,7 +433,8 @@ class CassieTrajEnv(Env):
         diag_last = _last_substep(diag_seq)
         # the first substep's previous foot position: FK of the pre-step
         # state (one K2 launch on the megakernel tier)
-        prev_foot0 = static_diag(m, state.params, state.phys).foot_pos
+        prev_foot0 = static_diag(m, state.params, state.phys,
+                                 self.pd_tier).foot_pos
         prev_pos_seq = torch.cat([prev_foot0[None], diag_seq.foot_pos[:-1]])
         foot_vel_seq = (diag_seq.foot_pos - prev_pos_seq) / m.timestep
         orient = (1.0 - torch.sum(diag_seq.foot_quat * self._neutral_foot,
@@ -480,7 +494,14 @@ class CassieTrajEnv(Env):
             new_state, orient_add=orient_add, prev_action=act,
             prev_torque=diag_last.motor_torque)
         new_state, obs = self._observe(new_state, est)
-        return new_state, obs, reward, terminated
+        info = None
+        if with_info:
+            info = {"grf_seq": diag_seq.foot_frc_z,
+                    "foot_pos": diag_last.foot_pos,
+                    "est_lfoot_pos": est.left_foot_position,
+                    "est_rfoot_pos": est.right_foot_position,
+                    "qpos": phys.qpos}
+        return new_state, obs, reward, terminated, info
 
     # ------------------------------------------------------------------
     def _tracking_errors(self, state: CassieTrajEnvState, joint_scale: float):

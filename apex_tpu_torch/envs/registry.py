@@ -2,7 +2,7 @@
 package registers (`apex_tpu/envs/registry.py`): Cassie-v0,
 CassieStanding-v0, CassieTraj-v0, CassiePlayground-v0, Walker2d-v0 and
 PointMass-v0. Each takes the keyword arguments JAX's factory passes on to
-it, and the Cassie envs the port's `pd_tier`."""
+it, and the Cassie and Walker2d envs the port's `pd_tier`."""
 from __future__ import annotations
 
 from apex_tpu_torch.envs.base import Env
@@ -44,7 +44,7 @@ def env_factory(env_name: str, device=None, **kwargs) -> Env:
         # factory (apex_tpu/envs/registry.py:49-52)
         from apex_tpu_torch.envs.walker2d import Walker2dEnv
 
-        return Walker2dEnv(device=device)
+        return Walker2dEnv(device=device, **pick())
     if name in ("pointmass-v0", "pointmass"):
         from apex_tpu_torch.envs.base import PointMassEnv
 

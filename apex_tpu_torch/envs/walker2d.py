@@ -1,14 +1,16 @@
-"""Walker2d: the planar 7-body walker on the fleet tier.
+"""Walker2d: the planar 7-body walker on the fleet or the per-env tier.
 
 Port of `apex_tpu/envs/walker2d.py`. Classic gym semantics: obs =
 [qpos[1:], clip(qvel, +-10)] (17), reward = forward velocity + alive bonus
 - 1e-3 |a|^2, termination when the torso height leaves [0.8, 2.0], |pitch|
 > 1 or the state is not finite. A step is `frame_skip` = 4 substeps of
-the model's own 0.002 s through the batch-last fleet step (`fleet_step`:
-K2 for the kinematics, K3 for (M + hD)^-1), as `engine.step` under vmap
-is in the JAX package. The action is the actuators' control, clamped to
-[-1, 1] by the fleet step. Resets draw from the generator and launch no
-kernel; steps draw nothing.
+the model's own 0.002 s, as `engine.step` under vmap is in the JAX
+package: by default through the batch-last fleet step (`fleet_step`: K2
+for the kinematics, K3 for (M + hD)^-1), its default route; with
+`pd_tier="per_env"` through the per-env engine (`engine.step`: K3's
+batch-first route for (M + hD)^-1), its route under APEX_TPU_NO_FLEET=1.
+The action is the actuators' control, clamped to [-1, 1] by the step.
+Resets draw from the generator and launch no kernel; steps draw nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from apex_tpu_torch.device import const, resolve_device
 from apex_tpu_torch.envs.base import Env, to_batch_first
+from apex_tpu_torch.physics import engine
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.physics.fleet import fleet_step
 from apex_tpu_torch.physics.models.walker2d import make_model
@@ -61,18 +64,27 @@ class Walker2dEnv(Env):
     mirrored_acts = [3, 4, 5, 0.1, 1, 2]
     clock_inds = None
 
-    def __init__(self, device=None):
+    PD_TIERS = ("fleet", "per_env")
+
+    def __init__(self, device=None, pd_tier: str | None = None):
+        if pd_tier not in (None, *self.PD_TIERS):
+            raise ValueError(f"Walker2d: pd_tier must be None or one of "
+                             f"{self.PD_TIERS}, got {pd_tier!r}")
         self.device = resolve_device(device)
         self.model = walker_model()
+        self.pd_tier = pd_tier or "fleet"
         self._params: Dict[int, PhysParams] = {}
 
     def params(self, batch: int) -> PhysParams:
         """The model's parameters for a fleet of `batch` envs, built once
-        per fleet size (no env randomizes them)."""
+        per fleet size (no env randomizes them): batch-last for the fleet
+        tier, batch-first for the per-env tier."""
         p = self._params.get(batch)
         if p is None:
-            p = self._params[batch] = PhysParams.from_model(
-                self.model, batch, self.device)
+            p = PhysParams.from_model(self.model, batch, self.device)
+            if self.pd_tier == "per_env":
+                p = engine.params_batch_first(p)
+            self._params[batch] = p
         return p
 
     def sample_reset_noise(self, generator: torch.Generator,
@@ -97,10 +109,18 @@ class Walker2dEnv(Env):
     def step(self, state: WalkerState, action: torch.Tensor, noise=None):
         m = self.model
         params = self.params(action.shape[0])
-        ctrl = action.T.contiguous()
-        qpos, qvel = state.qpos, state.qvel
-        for _ in range(self.frame_skip):
-            _, _, qpos, qvel, _, _ = fleet_step(m, params, qpos, qvel, ctrl)
+        if self.pd_tier == "per_env":
+            qpos, qvel = state.qpos.T, state.qvel.T
+            for _ in range(self.frame_skip):
+                out = engine.step(m, params, qpos, qvel, action)
+                qpos, qvel = out.qpos, out.qvel
+            qpos, qvel = qpos.T.contiguous(), qvel.T.contiguous()
+        else:
+            ctrl = action.T.contiguous()
+            qpos, qvel = state.qpos, state.qvel
+            for _ in range(self.frame_skip):
+                _, _, qpos, qvel, _, _ = fleet_step(m, params, qpos, qvel,
+                                                    ctrl)
 
         dt = m.timestep * self.frame_skip
         forward_vel = (qpos[0] - state.qpos[0]) / dt

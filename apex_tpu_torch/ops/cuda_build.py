@@ -30,6 +30,7 @@ SIGNATURES = {
     "apex_fleet_fk": (_P,) * 5 + (_I, _I, _I, _I, _P),
     "apex_fleet_fk_info": (_I, _I, _I, _P),
     "apex_spd_inverse": (_P, _P, _I, _I, _P),
+    "apex_spd_inverse_bf": (_P, _P, _I, _I, _P),
     "apex_spd_inverse_info": (_I, _P),
     "apex_pd_substep": (_P,) * 14 + (_I, _I, _I, _P),
     "apex_pd_substep_info": (_I, _I, _P),

@@ -3,7 +3,10 @@
 Port of `apex_tpu/ops/linalg.py`: Cholesky with a pivot floor and the two
 triangular substitutions, written as per-column vector operations over
 leading batch dimensions. `spd_inverse` is the plain version of the CUDA
-kernel K3 (`ops/pallas_linalg.py`). All matrices are symmetric positive
+kernel K3 (`ops/pallas_linalg.py`). The batched routes `batched_spd_inverse`
+and `batched_spd_solve` take a batch-first fleet of matrices, as the JAX
+package's custom vmap rules do: on the CPU the unrolled forms, on CUDA
+tensors K3's batch-first route. All matrices are symmetric positive
 definite (mass matrices, regularized Delassus operators).
 """
 from __future__ import annotations
@@ -73,3 +76,25 @@ def spd_inverse(A: torch.Tensor) -> torch.Tensor:
     n = A.shape[-1]
     eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
     return spd_solve(A, eye)
+
+
+def batched_spd_inverse(A: torch.Tensor) -> torch.Tensor:
+    """A (B, n, n) SPD -> A^-1, the counterpart of `make_batched_spd_inverse`
+    under vmap (apex_tpu/ops/linalg.py:94-120): the unrolled `spd_inverse`
+    on the CPU, as JAX's rule takes it off the TPU; on a CUDA tensor one
+    launch of K3's batch-first route, or an error."""
+    if A.device.type == "cpu":
+        return spd_inverse(A)
+    from apex_tpu_torch.ops.pallas_linalg import spd_inverse_bf
+
+    return spd_inverse_bf(A.contiguous())
+
+
+def batched_spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = A^-1 b for A (B, n, n) SPD and b (B, n), the counterpart of
+    `make_batched_spd_solve` under vmap (apex_tpu/ops/linalg.py:125-157):
+    the unrolled `spd_solve` on the CPU; on CUDA tensors the inverse from
+    K3's batch-first route times b (:148-153)."""
+    if A.device.type == "cpu":
+        return spd_solve(A, b)
+    return torch.einsum("bij,bj->bi", batched_spd_inverse(A), b)

@@ -1,11 +1,14 @@
 """Cassie simulation layer: PD drives, 2 kHz substep, state estimator.
 
 Port of `apex_tpu/physics/cassie_sim.py` for the fleet: the PD scan runs
-`length` substeps through one of two tiers, as `_fleet_pd_scan` does in the
-JAX package: the whole-substep kernel K1 (`physics/fleet_kernel.py`, the
-JAX package's path on its accelerator) or the batch-last fleet step
-(`physics/fleet.py`, its path on the CPU and GPU backends). Every state
-here is batch-last: qpos (35, B), PD command rows (10, B).
+`length` substeps through one of three tiers, as the JAX package does: the
+whole-substep kernel K1 (`physics/fleet_kernel.py`, the JAX package's path
+on its accelerator), the batch-last fleet step (`physics/fleet.py`, its
+path on the CPU and GPU backends), or the per-env engine
+(`physics/engine.py`, its reference path under APEX_TPU_NO_FLEET=1, the
+`_pd_scan_single` loop under vmap). Every state here is batch-last: qpos
+(35, B), PD command rows (10, B); the per-env tier converts to its
+batch-first layout once per scan.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.device import const
-from apex_tpu_torch.physics import fleet, fleet_kernel
+from apex_tpu_torch.physics import engine, fleet, fleet_kernel
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.physics.models.cassie_gen import make_model
 from apex_tpu_torch.physics.spec import PhysModel
@@ -133,7 +136,7 @@ def _feet(model: PhysModel):
     return model.body_id("left-foot"), model.body_id("right-foot"), left, right
 
 
-PD_TIERS = ("megakernel", "fleet")
+PD_TIERS = ("megakernel", "fleet", "per_env")
 
 
 def pd_scan(model: PhysModel, params: PhysParams, phys: CassiePhysState,
@@ -144,7 +147,8 @@ def pd_scan(model: PhysModel, params: PhysParams, phys: CassiePhysState,
     carry a leading (length,) substep axis, qvel/qacc_seq are
     (length, nv, B) -- the post-substep streams the env tracking layer
     reduces. `tier` is "megakernel" (one K1 launch per substep,
-    `_megakernel_pd_scan`) or "fleet" (the batch-last fleet step); None
+    `_megakernel_pd_scan`), "fleet" (the batch-last fleet step) or
+    "per_env" (the per-env engine, `_pd_scan_single` under vmap); None
     takes the megakernel for CUDA tensors and the fleet on the CPU, the
     split `_fleet_pd_scan` makes by backend (cassie_sim.py:292-300).
 
@@ -154,6 +158,8 @@ def pd_scan(model: PhysModel, params: PhysParams, phys: CassiePhysState,
         tier = "megakernel" if phys.qpos.device.type == "cuda" else "fleet"
     if tier == "megakernel":
         return _megakernel_pd_scan(model, params, phys, cmd, length)
+    if tier == "per_env":
+        return _per_env_pd_scan(model, params, phys, cmd, length)
     if tier != "fleet":
         raise ValueError(f"pd_scan: tier must be one of {PD_TIERS}, got "
                          f"{tier!r}")
@@ -227,6 +233,85 @@ def _fleet_pd_scan(model: PhysModel, params: PhysParams,
             diag_seq, torch.stack(qvels), qacc_seq)
 
 
+def pd_control(model: PhysModel, qpos: torch.Tensor, qvel: torch.Tensor,
+               cmd: PDCommand) -> torch.Tensor:
+    """The PD torque law tau = P (pT - q) + D (dT - qd) + ff per env
+    (cassie_sim.py:137-153), batch-first: qpos (B, nq), qvel (B, nv), the
+    command's fields (B, 10). Returns the actuator controls tau / gear
+    (B, nu); the engine clips them to the control range."""
+    dev = qpos.device
+    q = qpos[:, const(MOTOR_QPOS_IDX, dev, torch.int64)]
+    qd = qvel[:, const(MOTOR_QVEL_IDX, dev, torch.int64)]
+    tau = (cmd.p_gain * (cmd.p_target - q) + cmd.d_gain * (cmd.d_target - qd)
+           + cmd.ff_torque)
+    return tau / const([a.gear for a in model.actuators], dev)
+
+
+def pd_substep(model: PhysModel, params_bf: PhysParams, qpos: torch.Tensor,
+               qvel: torch.Tensor, cmd: PDCommand):
+    """One 0.5 ms substep under PD control on the per-env engine
+    (cassie_sim.py:171-207), batch-first (`pd_control`'s layout, params
+    from `engine.params_batch_first`). Returns (engine.StepOut, the
+    substep's diagnostics as a batch-first `SubstepDiag`)."""
+    ctrl = pd_control(model, qpos, qvel, cmd)
+    out = engine.step(model, params_bf, qpos, qvel, ctrl)
+    lf, rf, lcon, rcon = _feet(model)
+    force, vel, kin = out.contact.force, out.contact.vel, out.kin
+    origin = kin.origin
+    diag = SubstepDiag(
+        foot_frc_z=torch.stack([sum(force[:, i, 2] for i in lcon),
+                                sum(force[:, i, 2] for i in rcon)], dim=1),
+        foot_pos=torch.stack([kin.xpos[:, lf] + origin,
+                              kin.xpos[:, rf] + origin], dim=1),
+        foot_vel=torch.stack([(vel[:, lcon[0]] + vel[:, lcon[1]]) / 2.0,
+                              (vel[:, rcon[0]] + vel[:, rcon[1]]) / 2.0],
+                             dim=1),
+        foot_quat=torch.stack([kin.xquat[:, lf], kin.xquat[:, rf]], dim=1),
+        toe_heel_force=torch.stack([
+            torch.stack([force[:, lcon[0]], force[:, lcon[1]]], dim=1),
+            torch.stack([force[:, rcon[0]], force[:, rcon[1]]], dim=1)],
+            dim=1),
+        motor_torque=out.actuator_torque)
+    return out, diag
+
+
+def _per_env_pd_scan(model: PhysModel, params: PhysParams,
+                     phys: CassiePhysState, cmd: PDCommand, length: int):
+    """`_pd_scan_single` (cassie_sim.py:236-245) under vmap: `length`
+    `pd_substep`s of the per-env engine, with the layout converted once
+    each way: the batch-last params, state and command to batch-first
+    before the loop, the streams back to batch-last after it."""
+    params_bf = engine.params_batch_first(params)
+    cmd_bf = PDCommand(*(x.T for x in dataclasses.astuple(cmd)))
+    qpos, qvel = phys.qpos.T, phys.qvel.T
+    diags, qvels, qaccs = [], [], []
+    for _ in range(length):
+        out, diag = pd_substep(model, params_bf, qpos, qvel, cmd_bf)
+        qpos, qvel = out.qpos, out.qvel
+        diags.append(diag)
+        qvels.append(qvel)
+        qaccs.append(out.qacc)
+    # (L, B, ...) -> (L, ..., B)
+    bl = lambda xs: torch.movedim(torch.stack(xs), 1, -1).contiguous()
+    diag_seq = SubstepDiag(*(bl(x) for x in zip(*diags)))
+    qacc_seq = bl(qaccs)
+    return (CassiePhysState(qpos=qpos.T.contiguous(),
+                            qvel=qvel.T.contiguous(), qacc=qacc_seq[-1]),
+            diag_seq, bl(qvels), qacc_seq)
+
+
+def settle(model: PhysModel, params: PhysParams, state: CassiePhysState,
+           n_substeps: int = 400, tier: str | None = None
+           ) -> CassiePhysState:
+    """Hold the neutral PD targets for n substeps so the soft loop closures
+    and contacts converge to a consistent standing state
+    (cassie_sim.py:518-529), on `pd_scan`'s tier."""
+    B = state.qpos.shape[-1]
+    target = const(NEUTRAL_OFFSET, state.qpos.device)[:, None].expand(10, B)
+    return pd_scan(model, params, state, PDCommand.from_targets(target),
+                   n_substeps, tier)[0]
+
+
 @dataclasses.dataclass
 class CassieStateOut:
     """state_out_t equivalent (include/state_out_t.h:24-78), restricted to
@@ -276,19 +361,35 @@ def estimate_state(model: PhysModel, state: CassiePhysState,
 
 
 def static_diag(model: PhysModel, params: PhysParams,
-                state: CassiePhysState) -> SubstepDiag:
-    """FK-only diagnostics (no step): foot poses from kinematics (one K2
-    launch on the GPU), zero forces and velocities."""
-    kin = fleet.fleet_fk(model, params.body_ipos, state.qpos)
+                state: CassiePhysState, tier: str | None = None
+                ) -> SubstepDiag:
+    """FK-only diagnostics (no step): foot poses from kinematics, zero
+    forces and velocities. The FK is the fleet's (one K2 launch on the GPU)
+    on the megakernel and fleet tiers, and the per-env engine's, with no
+    kernel, on the per-env tier, as JAX computes it under
+    APEX_TPU_NO_FLEET (cassie_sim.py:499-515)."""
     lf, rf, _, _ = _feet(model)
-    feet = const([lf, rf], state.qpos.device, torch.int64)
     z = state.qpos.new_zeros
     B = state.qpos.shape[-1]
+    if tier == "per_env":
+        kin = engine.forward_kinematics(
+            model, engine.params_batch_first(params), state.qpos.T)
+        origin = kin.origin[:, None]
+        foot_pos = torch.stack([kin.xpos[:, lf], kin.xpos[:, rf]], dim=1) \
+            + origin
+        foot_quat = torch.stack([kin.xquat[:, lf], kin.xquat[:, rf]], dim=1)
+        foot_pos, foot_quat = (torch.movedim(x, 0, -1).contiguous()
+                               for x in (foot_pos, foot_quat))
+    else:
+        kin = fleet.fleet_fk(model, params.body_ipos, state.qpos)
+        feet = const([lf, rf], state.qpos.device, torch.int64)
+        foot_pos = kin.xpos[feet] + kin.origin
+        foot_quat = fleet._mat2quat_bt(kin.ximat[feet])
     return SubstepDiag(
         foot_frc_z=z((2, B)),
-        foot_pos=kin.xpos[feet] + kin.origin,
+        foot_pos=foot_pos,
         foot_vel=z((2, 3, B)),
-        foot_quat=fleet._mat2quat_bt(kin.ximat[feet]),
+        foot_quat=foot_quat,
         toe_heel_force=z((2, 2, 3, B)),
         motor_torque=z((10, B)),
     )

@@ -37,8 +37,8 @@ class Experiment(NamedTuple):
 def load_experiment(path: str, device=None, physics=None) -> Experiment:
     """Rebuild (env, actor, critic, norm, args) from a run directory, with
     the JAX package's defaults for settings the run did not record.
-    `physics` picks the PD scan's tier ("megakernel" or "fleet"; None: the
-    device's default)."""
+    `physics` picks the PD scan's tier ("megakernel", "fleet" or
+    "per_env"; None: the device's default)."""
     device = resolve_device(device)
     with open(os.path.join(path, "experiment.pkl"), "rb") as f:
         args = SimpleNamespace(**pickle.load(f))

@@ -15,13 +15,20 @@ and one each on three new env configurations, and Walker2d through the
 fleet tier (K2 + K3) under PPO, TD3, DDPG and ARS and TD3 on Cassie
 through K1, and the recurrent learners (the committed recurrent PPO
 checkpoint held to JAX, `ppo --recurrent` on Walker2d and Cassie, `rdpg`
-and `ars --recurrent`) --
-after building the hand-written CUDA kernels from `apex_tpu_torch/csrc/`
+and `ars --recurrent`), and the per-env engine tier (the mk4_hardened
+evaluation and Walker2d through K3's batch-first route) and the analysis
+and profiling tools -- after building the hand-written CUDA kernels from
+`apex_tpu_torch/csrc/`
 and holding each against its plain PyTorch version on the card. Phases,
 each printed with its seconds as it ends:
 
   device     require CUDA; card name, power limit, torch and CUDA versions
   build      nvcc build of the kernels (seconds; registers and spills)
+  K3-bf      K3's batch-first route (the per-env engine's inverse of
+             M + hD) on (B, n, n) at (64 / 1024, 32, 32) on Cassie's M + hD
+             and (2048, 9, 9): per row against its plain version, bit for
+             bit the batch-last K3 on the transposed input; kernel, plain
+             and torch.linalg.inv ms and its bound
   K3, K2     each kernel against its plain version at B = 64 and 1024:
              max error, kernel / plain / library ms (kernel and library:
              device time from torch.profiler), the roofline bound; K3 also
@@ -65,6 +72,17 @@ each printed with its seconds as it ends:
              heightfield one; eval_fleet_mk5c: mk5c on the fleet tier,
              30 steps; the returns of eval, eval_mk5c and eval_mk4_terrain
              bit for bit those of earlier runs
+  per_env    the per-env engine tier: a 64-env Cassie substep against the
+             fleet tier at the JAX package's tier-to-tier tolerances; the
+             mk4_hardened evaluation on it (64 envs, 30 steps, seed 42),
+             counted (K3-bf once per substep, nothing else), ms per policy
+             step and launches per substep; Walker2d on it at 2048 envs
+             for 3 steps against its fleet tier, counted (4 K3-bf a step)
+  analysis   `runtime/analysis.py` on mk4_hardened (megakernel tier):
+             input_and_state_record (20 steps) and perturb_response (4
+             angles x 2 phases, 16 steps), in the JAX package's shapes,
+             counted; `runtime/profiling.py`'s trace of one policy step,
+             holding the annotated region and its 50 K1 launches
   eval_switches
              the 64-env, 300-step evaluation (seed 42, megakernel tier) of
              the checkpoints the CassieEnv switches unlock: main, main2 and
@@ -615,6 +633,337 @@ def check_k3(gen, dev, build_log: str):
     return out
 
 
+def check_k3_bf(gen, dev, build_log: str):
+    """K3's batch-first route (K3-bf, the per-env engine's inverse of
+    M + hD) on (B, n, n): at B = 64 and 1024 on Cassie's M + hD
+    (`cassie_mhd`) and at B = 2048 on random SPD of Walker2d's n = 9.
+    Each against its plain version (`linalg.spd_inverse`), per row: the
+    difference within `rel` of the row's largest entry of the inverse, as
+    `check_k3` bounds K3 (2e-3 on M + hD, 1e-5 on random SPD); and bit for
+    bit the batch-last K3 on the same matrices laid out (n, n, B). Timed
+    beside its plain version and torch.linalg.inv."""
+    from apex_tpu_torch.ops import linalg
+
+    out = {}
+    own = torch.Generator()      # leaves `gen`'s draws to the later phases
+    own.manual_seed(2048)
+    cases = [(B, 32, "cassie M+hD", cassie_mhd(B, gen, dev), 2e-3)
+             for B in (N_ENVS, FLEET)]
+    cases.append((2048, 9, "random SPD", random_spd(2048, 9, own).to(dev),
+                  1e-5))
+    for B, n, what, At, rel in cases:
+        A = At.permute(2, 0, 1).contiguous()           # (B, n, n)
+        before = pallas_linalg.spd_inverse_bf.launches
+        got = pallas_linalg.spd_inverse_bf(A)
+        if pallas_linalg.spd_inverse_bf.launches != before + 1:
+            raise AssertionError("K3-bf: its wrapper did not count a launch")
+        ref = linalg.spd_inverse(A)
+        bt = pallas_linalg.spd_inverse_bt(At)
+        torch.cuda.synchronize()
+        row = ref.abs().amax(dim=-1, keepdim=True)
+        err = (got - ref).abs()
+        worst = float((err / row).max())
+        if not (bool(torch.isfinite(got).all()) and worst <= rel):
+            raise AssertionError(f"K3-bf {what} B={B}: max err per row "
+                                 f"{worst:.3e} of the row's max > {rel}")
+        if not torch.equal(got.permute(1, 2, 0), bt):
+            raise AssertionError(f"K3-bf {what} B={B}: not bit for bit the "
+                                 "batch-last K3 on the transposed input")
+        ms = device_ms(lambda: pallas_linalg.spd_inverse_bf(A), 50,
+                       "spd_inverse_kernel")
+        plain = cuda_ms(lambda: linalg.spd_inverse(A), 3, 1)
+        lib = device_ms(lambda: torch.linalg.inv(A), 50)
+        # a Cholesky-based inverse: n^3/3 each for L, L^-1 and L^-T L^-1
+        bnd, by, why = bound_ms(2 * A.numel() * 4, n ** 3 * B)
+        out[(n, B)] = dict(max_abs_err=float(err.max()), ms=ms,
+                           plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=lib)
+        print(f"  K3-bf {what} ({B}, {n}, {n}): max err {float(err.max()):.3e}"
+              f" ({worst:.2e} of its row's max), bit for bit K3 on the "
+              f"transposed input; kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"torch.linalg.inv {lib:.4f} ms, bound {bnd * 1e3:.3f} us "
+              f"({by}: {why})", flush=True)
+    print("  spd_inverse.cu by instantiation (width, batch-first): "
+          + "; ".join(f"<{w}, {bf}> {res}" for w, bf, res in
+                      k3_resources(build_log)), flush=True)
+    return out
+
+
+def k3_resources(build_log: str):
+    """[(width, batch_first, 'N registers, S bytes stack frame, spill
+    stores / loads')] of each spd_inverse_kernel instantiation in the
+    build log's spd_inverse.cu section (ptxas -v)."""
+    import re
+
+    sec = build_log.split("== spd_inverse.cu", 1)[-1].split("\n==", 1)[0]
+    out = []
+    for m in re.finditer(
+            r"Function properties for \S*spd_inverse_kernelILi(\d+)ELb([01])"
+            r"\S*\s+(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads\s+ptxas info\s+: Used (\d+) registers",
+            sec):
+        w, bf, stack, st, ld, regs = m.groups()
+        out.append((int(w), bf == "1", f"{regs} registers, {stack} B stack, "
+                    f"{st} / {ld} B spilled"))
+    return out
+
+
+def per_env_inputs(B: int, seed: int, dev):
+    """A Cassie batch as tests/test_fleet_parity.py draws it for the JAX
+    package's tier-to-tier checks (qpos N(0, 0.01^2) around the standing
+    pose, ball quaternions renormalized, qvel N(0, 0.1^2), controls
+    N(0, 0.3^2)), lowered 3 cm so that the feet press into the floor, with
+    randomized masses, damping, friction and an external wrench:
+    batch-last qpos, qvel, ctrl and params on `dev`."""
+    m = cassie_model()
+    rng = np.random.default_rng(seed)
+    qpos = CASSIE_QPOS_INIT[:, None] + 0.01 * rng.normal(size=(m.nq, B))
+    qpos[2] -= 0.03
+    for j in m.joints:
+        if j.jtype.name == "BALL":
+            q = qpos[j.qposadr:j.qposadr + 4]
+            qpos[j.qposadr:j.qposadr + 4] = q / np.linalg.norm(q, axis=0)
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    params = PhysParams.from_model(m, B, dev)
+    params.body_mass = params.body_mass * f32(
+        rng.uniform(0.5, 1.5, (m.nbody, B)))
+    params.dof_damping = params.dof_damping * f32(
+        rng.uniform(0.5, 2.0, (m.nv, B)))
+    params.friction = f32(rng.uniform(0.4, 1.1, B))
+    params.ext_force = f32(5.0 * rng.normal(size=(6, B)))
+    return (f32(qpos), f32(0.1 * rng.normal(size=(m.nv, B))),
+            f32(0.3 * rng.normal(size=(m.nu, B))), params)
+
+
+# the JAX package's per-field tolerances between its physics tiers
+# (tests/test_fleet_parity.py:39-68): (rtol, atol)
+STEPOUT_TOL = dict(qpos=(1e-4, 2e-5), qvel=(5e-2, 2e-2), qacc=(1e-1, 50.0),
+                   force=(5e-2, 1.0), depth=(1e-4, 1e-6), pos=(1e-4, 1e-5),
+                   xpos=(1e-4, 1e-5), xquat=(1e-4, 1e-5),
+                   torque=(1e-5, 1e-6))
+
+
+def per_env_vs_fleet(m, params, qpos, qvel, ctrl):
+    """One substep of the batch through the per-env engine (K3-bf) and the
+    fleet step (K2 + K3), at STEPOUT_TOL. Returns the largest difference
+    of each output, the largest contact force and the launch counts of
+    the per-env substep."""
+    from apex_tpu_torch.physics import engine
+
+    pbf = engine.params_batch_first(params)
+    q, v, u = qpos.T.contiguous(), qvel.T.contiguous(), ctrl.T.contiguous()
+    got, _, n = count_launches(lambda: engine.step(m, pbf, q, v, u))
+    dyn, con, q2, v2, a2, tau = fleet.fleet_step(m, params, qpos, qvel, ctrl)
+    bf = lambda x: torch.movedim(x, -1, 0)
+    pairs = dict(qpos=(got.qpos, bf(q2)), qvel=(got.qvel, bf(v2)),
+                 qacc=(got.qacc, bf(a2)), force=(got.contact.force,
+                                                 bf(con.force)),
+                 depth=(got.contact.depth, bf(con.depth)),
+                 pos=(got.contact.pos, bf(con.pos)),
+                 xpos=(got.kin.xpos, bf(dyn.kin.xpos)),
+                 xquat=(got.kin.xquat, bf(fleet._mat2quat_bt(dyn.kin.ximat))),
+                 torque=(got.actuator_torque, bf(tau)))
+    out = {}
+    for name, (a, b) in pairs.items():
+        rtol, atol = STEPOUT_TOL[name]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"per-env substep: non-finite {name}")
+        torch.testing.assert_close(
+            a, b, rtol=rtol, atol=atol,
+            msg=lambda t: f"per-env vs fleet substep {name}: {t}")
+        out[name] = float((a - b).abs().max())
+    return out, float(con.force[:, 2].max()), n
+
+
+def walker_per_env_vs_fleet(dev, steps: int = 3):
+    """Walker2d at WALKER_FLEET envs, `steps` env steps on the per-env tier
+    (K3-bf) against the fleet tier (K2 + K3) from the same state and
+    actions, counted (4 K3-bf per step, nothing else). The states are held
+    to the per-substep tolerances plus four times the fleet tier's own
+    spread over the same steps when its start state changes by random
+    factors 1 +- 1e-7 (four draws): contact onsets amplify rounding over
+    the 4 x `steps` substeps."""
+    from apex_tpu_torch.envs.walker2d import WalkerState
+
+    B = WALKER_FLEET
+    gen = torch.Generator()
+    gen.manual_seed(13)
+    qpos, qvel, _ = walker_inputs(B, gen)
+    acts = [0.5 * torch.randn(B, 6, generator=gen).to(dev)
+            for _ in range(steps)]
+    envs = {t: Walker2dEnv(device=dev, pd_tier=t)
+            for t in ("per_env", "fleet")}
+
+    def run(tier, q, v):
+        st = WalkerState(q.to(dev), v.to(dev))
+        for a in acts:
+            st, _, _, _ = envs[tier].step(st, a, None)
+        return st
+
+    got, secs, n = count_launches(lambda: run("per_env", qpos, qvel))
+    check_counts("walker per_env steps", n, {
+        "K1": 0, "K1-hfield": 0, "K2": 0, "K3": 0, "K3-bf": 4 * steps})
+    ref = run("fleet", qpos, qvel)
+    spread_q, spread_v = torch.zeros_like(ref.qpos), torch.zeros_like(
+        ref.qvel)
+    for _ in range(4):
+        jitter = lambda x: x * (1.0 + 1e-7 * (
+            torch.randint(0, 2, x.shape, generator=gen) * 2.0 - 1.0))
+        alt = run("fleet", jitter(qpos), jitter(qvel))
+        spread_q = torch.maximum(spread_q, (alt.qpos - ref.qpos).abs())
+        spread_v = torch.maximum(spread_v, (alt.qvel - ref.qvel).abs())
+    out = {}
+    for name, a, b, sp, (rtol, atol) in (
+            ("qpos", got.qpos, ref.qpos, spread_q, STEPOUT_TOL["qpos"]),
+            ("qvel", got.qvel, ref.qvel, spread_v, STEPOUT_TOL["qvel"])):
+        err = (a - b).abs()
+        bound = atol + rtol * b.abs() + 4 * sp
+        if not (bool(torch.isfinite(a).all()) and bool((err <= bound).all())):
+            i = int(torch.argmax(err - bound))
+            raise AssertionError(
+                f"Walker2d per_env vs fleet {name}: err "
+                f"{float(err.flatten()[i]):.3e} > bound "
+                f"{float(bound.flatten()[i]):.3e}")
+        out[name] = float(err.max())
+    return dict(out, ms_per_step=secs / steps * 1e3, launches=n)
+
+
+def check_per_env(dev, fleet_return: float):
+    """The per-env engine tier on the card: one Cassie substep at N_ENVS
+    envs against the fleet tier (STEPOUT_TOL); the mk4_hardened evaluation
+    on the per-env tier (N_ENVS envs, FLEET_TRAJ_LEN steps, seed 42),
+    counted (K3-bf once per substep, nothing else), its return within
+    EVAL_BOUND of the fleet tier's on the same draws (`fleet_return`),
+    with its launches per substep from torch.profiler; Walker2d on the
+    per-env tier against its fleet tier (`walker_per_env_vs_fleet`)."""
+    m = cassie_model()
+    qpos, qvel, ctrl, params = per_env_inputs(N_ENVS, 21, dev)
+    sub_err, force, n = per_env_vs_fleet(m, params, qpos, qvel, ctrl)
+    check_counts("per-env substep", n, {"K1": 0, "K1-hfield": 0, "K2": 0,
+                                        "K3": 0, "K3-bf": 1})
+    if not force > 0:
+        raise AssertionError("per-env substep: no contact force in the batch")
+    print("  per-env substep vs fleet (B=64): " + ", ".join(
+        f"{k} {v:.3e}" for k, v in sub_err.items())
+        + f"; max contact force {force:.1f} N", flush=True)
+
+    ep_ret, ep_len, secs, n = run_eval("per_env", FLEET_TRAJ_LEN, 42)
+    check_counts("eval per_env", n, {
+        "K1": 0, "K1-hfield": 0, "K2": 0, "K3": 0,
+        "K3-bf": FLEET_TRAJ_LEN * SIMRATE})
+    if not abs(ep_ret - fleet_return) <= EVAL_BOUND * abs(fleet_return):
+        raise AssertionError(f"eval per_env: return {ep_ret:.4f}, the fleet "
+                             f"tier's {fleet_return:.4f} on the same draws")
+    # launches per substep: one policy step of the evaluation's fleet
+    exp = load_experiment(CKPT, device="cuda", physics="per_env")
+    env = exp.env
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.no_grad():
+        state, obs = env.reset(env.sample_reset_noise(gen, N_ENVS))
+        act = exp.actor.act(exp.norm, obs, deterministic=True)
+        noise = env.sample_step_noise(gen, N_ENVS)
+        busy_ms, kernels, launch_calls = profile_launches(
+            lambda: env.step(state, act, noise))
+    step_ms = secs / FLEET_TRAJ_LEN * 1e3
+    print(f"  eval per_env: return {ep_ret:.4f} (fleet tier "
+          f"{fleet_return:.4f}), length {ep_len:.2f}, "
+          f"{step_ms:.2f} ms per policy step; one step: {launch_calls} "
+          f"launch calls ({launch_calls / SIMRATE:.1f} per substep), "
+          f"{kernels} kernels, device busy {busy_ms:.2f} ms", flush=True)
+    walker = walker_per_env_vs_fleet(dev)
+    print(f"  Walker2d per_env vs fleet (B={WALKER_FLEET}, 3 steps): qpos "
+          f"{walker['qpos']:.3e}, qvel {walker['qvel']:.3e}; "
+          f"{walker['ms_per_step']:.2f} ms per env step; "
+          f"{walker['launches']}", flush=True)
+    return n, dict(
+        substep_max_err=json.dumps({k: f"{v:.3e}" for k, v in
+                                    sub_err.items()}),
+        mean_return=f"{ep_ret:.4f}", mean_length=f"{ep_len:.2f}",
+        ms_per_policy_step=f"{step_ms:.2f}",
+        launch_calls_per_substep=f"{launch_calls / SIMRATE:.1f}",
+        device_busy_ms_per_policy_step=f"{busy_ms:.2f}",
+        k3_bf_launches=n["K3-bf"],
+        walker_ms_per_step=f"{walker['ms_per_step']:.2f}")
+
+
+ANALYSIS_STEPS = 20          # input_and_state_record's rollout
+PERTURB_SCHEDULE = dict(wait_steps=4, perturb_steps=4, recover_steps=8,
+                        phases=[0, 16])
+
+
+def check_analysis(dev):
+    """`runtime/analysis.py` and `runtime/profiling.py` on mk4_hardened on
+    the megakernel tier at a small size: input_and_state_record
+    (ANALYSIS_STEPS steps at 2 m/s) and perturb_response (4 angles x 2
+    phases, PERTURB_SCHEDULE) finite and in the JAX package's shapes,
+    counted (K1 once per substep; K2 at the reset, at the pinned state's
+    observation and once per step for the pre-step foot positions); and
+    profiling.trace around one policy step: its Chrome trace holds the
+    annotated region and the step's SIMRATE K1 launches."""
+    from apex_tpu_torch.runtime import analysis, profiling
+
+    exp = load_experiment(CKPT, device="cuda")
+    env = exp.env
+
+    def policy(obs):
+        return exp.actor.act(exp.norm, obs, deterministic=True)
+
+    counts = lambda steps: {"K1": SIMRATE * steps, "K1-hfield": 0,
+                            "K2": steps + 2, "K3": 0}
+    rec, secs_rec, n = count_launches(lambda: analysis.input_and_state_record(
+        env, policy, n_steps=ANALYSIS_STEPS, speed=2.0))
+    check_counts("input_and_state_record", n, counts(ANALYSIS_STEPS))
+    T = ANALYSIS_STEPS
+    shapes = dict(qpos=(T, 35), reward=(T,), fallen=(T,), est_lfoot=(T, 3),
+                  est_rfoot=(T, 3), true_lfoot=(T, 3), true_rfoot=(T, 3))
+    for k, shape in shapes.items():
+        if rec[k].shape != shape or not np.isfinite(
+                rec[k].astype(np.float64)).all():
+            raise AssertionError(f"input_and_state_record {k}: shape "
+                                 f"{rec[k].shape}, want {shape}, or "
+                                 "non-finite")
+    pr, secs_pr, n_pr = count_launches(lambda: analysis.perturb_response(
+        env, policy, **PERTURB_SCHEDULE))
+    total = sum(v for k, v in PERTURB_SCHEDULE.items() if k != "phases")
+    check_counts("perturb_response", n_pr, counts(total))
+    if (pr["pelvis"].shape != (4, 2, total, 7)
+            or pr["fallen_seq"].shape != (4, 2, total)
+            or pr["survived"].shape != (4, 2)
+            or not np.isfinite(pr["pelvis"]).all()):
+        raise AssertionError(f"perturb_response: shapes {pr['pelvis'].shape}"
+                             f" {pr['fallen_seq'].shape} "
+                             f"{pr['survived'].shape} or non-finite")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.no_grad(), tempfile.TemporaryDirectory() as d:
+        state, obs = env.reset(env.sample_reset_noise(gen, N_ENVS))
+        noise = env.sample_step_noise(gen, N_ENVS)
+        with profiling.trace(d) as t:
+            with profiling.annotate("policy_step"):
+                env.step(state, policy(obs), noise)
+        with open(t.path) as f:
+            events = json.load(f)["traceEvents"]
+    k1_in_trace = sum(1 for e in events if e.get("cat") == "kernel"
+                      and "pd_substep_kernel" in e.get("name", ""))
+    annotated = any(e.get("name") == "policy_step" for e in events)
+    if not (annotated and k1_in_trace == SIMRATE):
+        raise AssertionError(f"profiling.trace: annotated region "
+                             f"{annotated}, K1 launches in the trace "
+                             f"{k1_in_trace}, want {SIMRATE}")
+    print(f"  input_and_state_record: {T} steps in {secs_rec:.2f} s, "
+          f"est_lfoot_err {float(rec['est_lfoot_err']):.3e}, falls "
+          f"{int(rec['fallen'].sum())}; perturb_response: "
+          f"{pr['pelvis'].shape}, survived {int(pr['survived'].sum())} of 8 "
+          f"in {secs_pr:.2f} s; trace: {k1_in_trace} K1 launches, "
+          f"{len(events)} events", flush=True)
+    return dict(record_s=f"{secs_rec:.2f}", perturb_s=f"{secs_pr:.2f}",
+                k1_launches=n["K1"] + n_pr["K1"],
+                k2_launches=n["K2"] + n_pr["K2"],
+                trace_k1_launches=k1_in_trace)
+
+
 def check_k2(gen, dev, build_log: str):
     """K2 against its plain version on a perturbed dyn-rand fleet, and on
     `fk_tree_model`'s tree."""
@@ -985,6 +1334,10 @@ def check_parity(dev):
 
 
 def check_counts(name, got, want):
+    """Launch counts against what the path implies; a count dict's K3-bf
+    is 0 unless `want` names it (only the per-env tier launches it)."""
+    if isinstance(got, dict):
+        want = {"K3-bf": 0, **want}
     if got != want:
         raise AssertionError(f"{name}: launch counts {got}, want {want}")
 
@@ -2270,6 +2623,9 @@ def main() -> int:
     k3 = check_k3(gen, dev, build_log)
     phase("K3", t0)
     t0 = time.time()
+    k3_bf = check_k3_bf(gen, dev, build_log)
+    phase("K3-bf", t0)
+    t0 = time.time()
     k2 = check_k2(gen, dev, build_log)
     phase("K2", t0)
     t0 = time.time()
@@ -2305,6 +2661,7 @@ def main() -> int:
     # substep, twice per step and once at the reset
     t0 = time.time()
     ep_ret, ep_len, secs, fleet_n = run_eval("fleet", FLEET_TRAJ_LEN, 42)
+    fleet_ret = ep_ret
     check_counts("eval_fleet", fleet_n, {
         "K1": 0, "K1-hfield": 0, "K2": FLEET_TRAJ_LEN * (SIMRATE + 2) + 1,
         "K3": FLEET_TRAJ_LEN * SIMRATE})
@@ -2330,6 +2687,14 @@ def main() -> int:
           mean_length=f"{ep_len:.2f}",
           ms_per_policy_step=f"{secs / FLEET_TRAJ_LEN * 1e3:.2f}",
           k3_launches=n["K3"], k2_launches=n["K2"])
+
+    # the per-env engine tier (K3-bf), and the analysis and profiling
+    # tools on the megakernel tier
+    t0 = time.time()
+    per_env_n, per_env = check_per_env(dev, fleet_ret)
+    phase("per_env", t0, **per_env)
+    t0 = time.time()
+    phase("analysis", t0, **check_analysis(dev))
 
     # the checkpoints the CassieEnv switches unlock, and CassieTraj-v0
     t0 = time.time()
@@ -2407,12 +2772,18 @@ def main() -> int:
          "route": "cuda", "source": "apex_tpu_torch/csrc/spd_inverse.cu",
          "replaces": "apex_tpu/ops/pallas_linalg.py:36",
          "launches": wppo_n["K3"], **walker["K3"]},
+        {"name": "K3-bf spd_inverse_bf, Cassie M+hD (64, 32, 32)",
+         "route": "cuda", "source": "apex_tpu_torch/csrc/spd_inverse.cu",
+         "replaces": "apex_tpu/ops/pallas_linalg.py:142",
+         "launches": per_env_n["K3-bf"], **k3_bf[(32, N_ENVS)]},
     ]}
     at_fleet = {"K1": {k: v for k, v in k1[FLEET].items()
                        if k != "max_abs_err"},
                 "K1-hfield": {k: v for k, v in k1h[FLEET].items()
                               if k != "max_abs_err"},
                 "K3": k3[("time", FLEET)],
+                "K3-bf": k3_bf[(32, FLEET)],
+                "K3-bf n=9 B=2048": k3_bf[(9, 2048)],
                 "K3 n=9 B=2048": k3[("time", (9, 2048))],
                 "K2": {k: v for k, v in k2[FLEET].items()
                        if k != "max_abs_err"}}

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from apex_tpu_torch.ops import pallas_linalg
-from apex_tpu_torch.physics import fleet, fleet_fk, fleet_kernel
+from apex_tpu_torch.ops import linalg, pallas_linalg
+from apex_tpu_torch.physics import engine, fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.envs.walker2d import walker_model
@@ -138,6 +138,93 @@ def test_spd_inverse_kernel_matches_plain(cuda, n, B):
     torch.cuda.synchronize()
     scale = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,B", [(32, 1), (32, 64), (32, 1024), (9, 2048),
+                                 (16, 33), (1, 5)])
+def test_spd_inverse_bf_is_k3_and_matches_plain(cuda, n, B):
+    """K3's batch-first route (K3-bf) on (B, n, n): within 1e-5 of
+    max|A^-1| of the unrolled Cholesky (as K3), and bit for bit the
+    batch-last K3 on the same matrices laid out (n, n, B) -- the same
+    arithmetic, only the addresses differ; one count on its own counter."""
+    gen = torch.Generator()
+    gen.manual_seed(7 * n + B)
+    At = random_spd(B, n, gen).to(cuda)              # (n, n, B)
+    A = At.permute(2, 0, 1).contiguous()              # (B, n, n)
+    before = (pallas_linalg.spd_inverse_bf.launches,
+              pallas_linalg.spd_inverse_bt.launches)
+    got = pallas_linalg.spd_inverse_bf(A)
+    assert (pallas_linalg.spd_inverse_bf.launches,
+            pallas_linalg.spd_inverse_bt.launches) == (before[0] + 1,
+                                                       before[1])
+    ref = linalg.spd_inverse(A)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(got.permute(1, 2, 0),
+                       pallas_linalg.spd_inverse_bt(At))
+    torch.testing.assert_close(linalg.batched_spd_inverse(A), got, rtol=0,
+                               atol=0)
+
+
+def test_spd_inverse_bf_refuses_bad_inputs(cuda):
+    """Wrong dtype, rank or width, or a non-contiguous tensor: an error,
+    no launch and no fallback."""
+    before = pallas_linalg.spd_inverse_bf.launches
+    A = torch.eye(4, device=cuda)[None].expand(3, 4, 4)
+    for bad in (A,                                      # not contiguous
+                A.double().contiguous(),               # float64
+                torch.eye(4, device=cuda),             # rank 2
+                torch.zeros(2, 33, 33, device=cuda),   # n > 32
+                torch.zeros(2, 4, 5, device=cuda)):    # not square
+        with pytest.raises(ValueError):
+            pallas_linalg.spd_inverse_bf(bad)
+    assert pallas_linalg.spd_inverse_bf.launches == before
+
+
+def _per_env_envelope(m, params_bf, qpos, qvel, ctrl, draws=4):
+    """Per-dof spread of the CPU per-env substep's new qpos and qvel when
+    its inputs change by random factors 1 +- 1e-7, i.e. by f32 rounding."""
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    out0 = engine.step(m, params_bf, qpos, qvel, ctrl)
+    env_q = torch.zeros_like(out0.qpos[:1])
+    env_v = torch.zeros_like(out0.qvel[:1])
+    for _ in range(draws):
+        jitter = lambda x: x * (1.0 + 1e-7 * (
+            torch.randint(0, 2, x.shape, generator=gen) * 2.0 - 1.0))
+        out = engine.step(m, params_bf, jitter(qpos), jitter(qvel), ctrl)
+        env_q = torch.maximum(env_q, (out.qpos - out0.qpos).abs().amax(
+            0, keepdim=True))
+        env_v = torch.maximum(env_v, (out.qvel - out0.qvel).abs().amax(
+            0, keepdim=True))
+    return env_q, env_v
+
+
+def test_per_env_substep_on_the_card_matches_the_cpu(cuda):
+    """One per-env substep of a dyn-rand Cassie fleet on the card (K3-bf
+    for (M + hD)^-1, one launch) against the same substep on the CPU,
+    held per dof to four times the spread rounding-level input changes
+    cause on the CPU (as the fleet tier's card test)."""
+    m = cassie_model()
+    qpos, qvel, params = _fleet(64, seed=9)
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    ctrl = 0.3 * torch.randn(m.nu, 64, generator=gen)
+    pbf = engine.params_batch_first(params)
+    q, v, u = qpos.T.contiguous(), qvel.T.contiguous(), ctrl.T.contiguous()
+    before = pallas_linalg.spd_inverse_bf.launches
+    out_g = engine.step(m, PhysParams(**{k: x.to(cuda) for k, x in
+                                         vars(pbf).items()}),
+                        q.to(cuda), v.to(cuda), u.to(cuda))
+    assert pallas_linalg.spd_inverse_bf.launches == before + 1
+    out_c = engine.step(m, pbf, q, v, u)
+    env_q, env_v = _per_env_envelope(m, pbf, q, v, u)
+    assert ((out_g.qvel.cpu() - out_c.qvel).abs() <= 4 * env_v + 1e-6).all()
+    assert ((out_g.qpos.cpu() - out_c.qpos).abs() <= 4 * env_q + 1e-6).all()
+    torch.testing.assert_close(out_g.kin.xpos.cpu(), out_c.kin.xpos,
+                               rtol=1e-5, atol=1e-5)
+    assert np.isfinite(out_g.qvel.cpu().numpy()).all()
 
 
 def test_fk_and_spd_inverse_kernels_are_deterministic(cuda):

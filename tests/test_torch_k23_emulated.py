@@ -133,17 +133,28 @@ extern "C" int emulate(const float* qpos, const float* ipos, float* out,
 }
 """, (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4),
     "spd_inverse": (r"""
-extern "C" int emulate(const float* A, float* out, int n, int B) {
+template <bool kBatchFirst>
+static void run_k3(const float* A, float* out, int n, int B) {
   const int blocks = (B + kMats - 1) / kMats;
   if (n <= 8)
-    run_blocks(blocks, kMats * 32, [=] { spd_inverse_kernel<8>(A, out, n, B); });
+    run_blocks(blocks, kMats * 32,
+               [=] { spd_inverse_kernel<8, kBatchFirst>(A, out, n, B); });
   else if (n <= 16)
-    run_blocks(blocks, kMats * 32, [=] { spd_inverse_kernel<16>(A, out, n, B); });
+    run_blocks(blocks, kMats * 32,
+               [=] { spd_inverse_kernel<16, kBatchFirst>(A, out, n, B); });
   else
-    run_blocks(blocks, kMats * 32, [=] { spd_inverse_kernel<32>(A, out, n, B); });
+    run_blocks(blocks, kMats * 32,
+               [=] { spd_inverse_kernel<32, kBatchFirst>(A, out, n, B); });
+}
+extern "C" int emulate(const float* A, float* out, int n, int B,
+                       int batch_first) {
+  if (batch_first)
+    run_k3<true>(A, out, n, B);
+  else
+    run_k3<false>(A, out, n, B);
   return 0;
 }
-""", (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2),
+""", (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 3),
     # the one-thread-per-env K2 of older checkouts: no barriers
     "fleet_fk_parent": (r"""
 extern "C" int emulate(const float* qpos, const float* ipos, float* xpos,
@@ -214,10 +225,13 @@ def run_fk(lib, m, ipos, qpos):
     return list(fleet_fk.kin_views(m, out, None))[:4]
 
 
-def run_spd(lib, A):
-    n, _, B = A.shape
+def run_spd(lib, A, batch_first: bool = False):
+    """The emulated K3 on batch-last (n, n, B) A, or K3-bf on batch-first
+    (B, n, n) A."""
+    n, B = (A.shape[-1], A.shape[0]) if batch_first else A.shape[1:]
     out = torch.full_like(A, float("nan"))
-    assert lib.emulate(A.data_ptr(), out.data_ptr(), n, B) == 0
+    assert lib.emulate(A.data_ptr(), out.data_ptr(), n, B,
+                       int(batch_first)) == 0
     return out
 
 
@@ -327,6 +341,20 @@ def test_emulated_spd_inverse_matches_plain(libs, n):
     scale = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-5 * scale
     assert torch.equal(run_spd(libs["spd_inverse"], A), got)
+
+
+@pytest.mark.parametrize("n", [1, 9, 16, 32])
+def test_emulated_spd_inverse_bf_is_k3_bit_for_bit(libs, n):
+    """The batch-first route (K3-bf) on (B, n, n) gives the batch-last
+    kernel's output on the same matrices laid out (n, n, B), bit for bit:
+    only the global addresses differ. 20 matrices: two blocks and a
+    partial one."""
+    gen = torch.Generator()
+    gen.manual_seed(100 + n)
+    A = random_spd(20, n, gen)
+    got = run_spd(libs["spd_inverse"], A.permute(2, 0, 1).contiguous(),
+                  batch_first=True)
+    assert torch.equal(got.permute(1, 2, 0), run_spd(libs["spd_inverse"], A))
 
 
 def parent_tables(parent: Path):

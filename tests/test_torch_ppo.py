@@ -41,6 +41,19 @@ from apex_tpu_torch.ops.gae import discounted_returns, gae_advantages
 from apex_tpu_torch.runtime import checkpoint, log
 from apex_tpu_torch.runtime.evaluate import load_experiment
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test files run side by side in several worker processes: torch's
+    default of one thread per core in each of them oversubscribes the CPU
+    (test_ppo_learns_pointmass took 493 s beside the other files, 20 s on
+    one thread)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 T_, B_ = 7, 5
 
 
