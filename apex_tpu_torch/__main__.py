@@ -11,10 +11,15 @@ the evaluation's draws; `eval --physics` picks the PD scan's tier (K1
 always for the learners, the device's default (megakernel on CUDA, fleet
 on the CPU). The run directory's name hashes the namespace
 and experiment.pkl stores it, so the learners get apex.py's namespace:
-the subcommand and `--device` are taken out first. `ppo --previous`
-inherits the previous run's env keys (with `--exchange_reward`, a new
-reward and run name) where apex.py does, before the namespace is handed
-on. `ppo --recurrent` trains `RecurrentPPO`, `rdpg` the recurrent DPG and
+the subcommand and `--device` are taken out first. `ppo` trains on
+several GPUs as the JAX package does on several devices: launched as the
+ranks of a process group (torchrun, or the APEX_COORD_ADDR /
+APEX_NUM_PROCS / APEX_PROC_ID variables, `parallel/multihost.py`), or, on
+a host with more than one GPU and no group, as one rank per GPU that it
+starts itself, where the fleet splits evenly and `--recurrent` is off.
+`ppo --previous` inherits the previous run's env keys (with
+`--exchange_reward`, a new reward and run name) where apex.py does,
+before the namespace is handed on. `ppo --recurrent` trains `RecurrentPPO`, `rdpg` the recurrent DPG and
 `ars --recurrent` ARS with an LSTM policy; as in apex.py, `eval` loads
 feed-forward PPO run directories only.
 """
@@ -52,7 +57,20 @@ def _device_args(parser: argparse.ArgumentParser) -> None:
                         choices=["cuda", "cpu"])
 
 
+def _lead_process() -> bool:
+    """Whether this process prints the banner: not a rank other than 0."""
+    import os
+
+    return os.environ.get("RANK", os.environ.get("APEX_PROC_ID", "0")) \
+        == "0"
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if _lead_process():
+        from apex_tpu_torch.utils.logo import print_logo
+
+        print_logo()
     parser = argparse.ArgumentParser(prog="python -m apex_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -191,9 +209,7 @@ def main(argv=None) -> int:
     cmd, device = args.cmd, args.device
     del args.cmd, args.device
     if cmd == "ppo":
-        from apex_tpu_torch.agents.ppo import run_experiment
-
-        run_experiment(args, device=device)
+        return _ppo(args, device, argv)
     elif cmd in ("td3_sync", "td3_async"):
         from apex_tpu_torch.agents.td3 import run_experiment
 
@@ -206,6 +222,30 @@ def main(argv=None) -> int:
         from apex_tpu_torch.agents.ars import run_experiment
 
         run_experiment(args, device=device)
+    return 0
+
+
+def _ppo(args, device: str, argv) -> int:
+    """`ppo`: in a process group where one is set up, as one rank per GPU
+    where the host has several and none is, else in this process."""
+    import torch
+    import torch.distributed as dist
+
+    from apex_tpu_torch.agents.ppo import run_experiment
+    from apex_tpu_torch.parallel import multihost
+
+    if not multihost.initialize(device=device):
+        n_gpu = torch.cuda.device_count() if device == "cuda" else 0
+        if (n_gpu > 1 and not getattr(args, "recurrent", False)
+                and args.num_procs % n_gpu == 0):
+            print(f"starting {n_gpu} ranks, one per GPU", flush=True)
+            return multihost.launch_local(argv, n_gpu)
+        run_experiment(args, device=device)
+        return 0
+    try:
+        run_experiment(args, device=device)
+    finally:
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,13 +1,19 @@
 """Proximal Policy Optimization on the env fleet.
 
-Port of `apex_tpu/agents/ppo.py`, single-program path (the SPMD branches,
-`train_iter_spmd` and `axis`, wait for multi-GPU work): a fleet rollout
-with auto-reset, Monte-Carlo returns or GAE, normalised advantages, then
-epochs of shuffled minibatches with the clipped surrogate, the critic's
-squared error, the entropy bonus and the mirror-symmetry loss, stopping
-further epochs once an epoch's mean KL passes `kl_max`. The optimiser is
+Port of `apex_tpu/agents/ppo.py`: a fleet rollout with auto-reset,
+Monte-Carlo returns or GAE, normalised advantages, then epochs of shuffled
+minibatches with the clipped surrogate, the critic's squared error, the
+entropy bonus and the mirror-symmetry loss, stopping further epochs once
+an epoch's mean KL passes `kl_max`. The optimiser is
 `optax.chain(clip_by_global_norm(0.05), adam(lr, eps))` written out by
 hand (`ClippedAdam`). Randomness comes from one `torch.Generator`.
+
+With a `parallel.mesh.Mesh` the iteration is the JAX package's SPMD one
+(`_train_iteration(axis=...)`, `train_iter_spmd`): each rank rolls out
+its block of the fleet with a generator of its own, and the gradients,
+the metrics and the advantage moments are means over the ranks, so the
+replicated nets stay in lockstep; the epoch permutations come from the
+shared generator, the same draws on every rank.
 
 Hyperparameter defaults match reference apex.py:230-250.
 """
@@ -32,6 +38,12 @@ from apex_tpu_torch.envs.base import Env, mirror_clock, mirror_matrix
 from apex_tpu_torch.models.distributions import DiagGaussian
 from apex_tpu_torch.models.nets import FFV, GaussianFFActor, NormState
 from apex_tpu_torch.ops.gae import discounted_returns, gae_advantages
+from apex_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_ppo_state,
+    shard_ppo_state,
+)
+from apex_tpu_torch.physics import fleet_kernel
 
 METRICS = ("actor_loss", "entropy", "critic_loss", "ratio", "kl",
            "mirror_loss")
@@ -140,8 +152,10 @@ class PPOTrainState:
     actor_opt: ClippedAdam
     critic_opt: ClippedAdam
     runner: RunnerState
-    generator: torch.Generator
+    generator: torch.Generator     # shared: the same draws on every rank
     seed: int
+    # a rank's own rollout draws (`shard_ppo_state`); None single-process
+    rank_generator: Optional[torch.Generator] = None
 
 
 class PPO:
@@ -239,12 +253,15 @@ class PPO:
                "std": std}
         return total, aux
 
-    def _minibatch_update(self, state: PPOTrainState, batch, anneal
-                          ) -> torch.Tensor:
+    def _minibatch_update(self, state: PPOTrainState, batch, anneal,
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
         """One optimiser step of actor and critic on one minibatch
         (reference update_policy, ppo.py:276-345); returns the (6,)
         metrics [actor_loss, entropy, critic_loss, ratio, kl,
-        mirror_loss]."""
+        mirror_loss]. With `mesh` the gradients are averaged over the
+        ranks before the clip and step, and the metrics after, so that
+        the KL early stop decides the same on every rank (ppo.py:242-261).
+        """
         obs, action, ret, adv, old_lp, old_mean, old_std = batch
         actor, critic = state.actor, state.critic
         total, aux = self._policy_losses(actor, state.norm, obs, action, adv,
@@ -253,50 +270,75 @@ class PPO:
         v = critic.value(state.norm, obs)[..., 0]
         critic_loss = 0.5 * ((ret - v) ** 2).mean()
         c_grads = torch.autograd.grad(critic_loss, state.critic_opt.params)
+        if mesh is not None:
+            grads = mesh.all_mean(a_grads + c_grads)
+            a_grads, c_grads = grads[:len(a_grads)], grads[len(a_grads):]
         state.actor_opt.step(a_grads)
         state.critic_opt.step(c_grads)
         with torch.no_grad():
             kl = DiagGaussian.kl(aux["mean"], aux["std"], old_mean,
                                  old_std).mean()
-            return torch.stack([aux["actor_loss"], aux["entropy"],
-                                critic_loss, aux["ratio"], kl,
-                                aux["mirror_loss"]])
+            metrics = torch.stack([aux["actor_loss"], aux["entropy"],
+                                   critic_loss, aux["ratio"], kl,
+                                   aux["mirror_loss"]])
+        return metrics if mesh is None else mesh.all_mean([metrics])[0]
 
     # ------------------------------------------------------------------
     # one training iteration: rollout, then update
     # ------------------------------------------------------------------
-    def _train_iteration(self, state: PPOTrainState, anneal: float):
-        """One rollout + update iteration (ppo.py:275-407, axis=None).
-        Returns (state, metrics); the nets and optimisers update in
-        place."""
+    def _train_iteration(self, state: PPOTrainState, anneal: float,
+                         mesh: Optional[Mesh] = None):
+        """One rollout + update iteration (ppo.py:275-407). Returns
+        (state, metrics); the nets and optimisers update in place. With
+        `mesh` (the state placed by `shard_ppo_state`) it is the SPMD
+        iteration of `train_iter_spmd` (ppo.py:409-454) on this rank: the
+        rank's block of the fleet, its own rollout draws, the shared
+        permutations."""
         cfg = self.config
-        state, traj = self._rollout(state, anneal)
+        state, traj = self._rollout(state, anneal, mesh)
         N = traj.reward.numel()
         perms = [torch.randperm(N, generator=state.generator,
                                 device=self.device)
                  for _ in range(cfg.epochs)]
-        return state, self._update(state, traj, anneal, perms)
+        return state, self._update(state, traj, anneal, perms, mesh)
 
     @torch.no_grad()
-    def _rollout(self, state: PPOTrainState, anneal: float):
+    def _rollout(self, state: PPOTrainState, anneal: float,
+                 mesh: Optional[Mesh] = None):
+        """The rollout of `_train_iteration`; with `mesh`, of the rank's
+        block, from its own generator, each megakernel substep a K1-part
+        launch on the block."""
         cfg = self.config
+        gen = state.generator if mesh is None else state.rank_generator
 
         def policy_fn(obs):
-            return state.actor.act(state.norm, obs,
-                                   generator=state.generator,
+            return state.actor.act(state.norm, obs, generator=gen,
                                    deterministic=False, anneal=anneal)
 
-        runner, traj = rollout_scan(self.env, policy_fn, state.runner,
-                                    state.generator, cfg.rollout_len,
-                                    cfg.max_traj_len)
+        def run():
+            return rollout_scan(self.env, policy_fn, state.runner, gen,
+                                cfg.rollout_len, cfg.max_traj_len)
+
+        if mesh is None:
+            runner, traj = run()
+        else:
+            with fleet_kernel.partitioned(mesh.world, cfg.num_envs):
+                runner, traj = run()
         return dataclasses.replace(state, runner=runner), traj
 
     def _update(self, state: PPOTrainState, traj: Rollout, anneal: float,
-                perms: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                perms: Sequence[torch.Tensor], mesh: Optional[Mesh] = None
+                ) -> Dict[str, torch.Tensor]:
         """The update half of `_train_iteration`: returns and advantages,
         old-policy statistics, then `epochs` passes over the minibatches
         that `perms` (one permutation of the T*B samples per epoch) cut,
-        with the epoch-mean KL early stop."""
+        with the epoch-mean KL early stop. With `mesh`, `traj` is the
+        rank's block: the advantage moments are global (the mean over
+        ranks of the local means, then of the local means of (a - m)^2,
+        ppo.py:327-330), the local minibatch is minibatch_size // world
+        (the single-process count of optimiser steps, ppo.py:338-344), and
+        the episode statistics are means over ranks of the ranks' means
+        with the episodes summed (ppo.py:384-391)."""
         cfg = self.config
         T, B = traj.reward.shape
         norm = state.norm
@@ -312,14 +354,20 @@ class PPO:
                     traj.reward, traj.terminated, traj.truncated,
                     next_values, cfg.gamma)
                 advantages = returns - values
-            advantages = (advantages - advantages.mean()) / (
-                advantages.std(unbiased=False) + cfg.eps)
+            if mesh is None:
+                advantages = (advantages - advantages.mean()) / (
+                    advantages.std(unbiased=False) + cfg.eps)
+            else:
+                (m,) = mesh.all_mean([advantages.mean()])
+                (var,) = mesh.all_mean([((advantages - m) ** 2).mean()])
+                advantages = (advantages - m) / (torch.sqrt(var) + cfg.eps)
             old_mean, old_std = state.actor.dist(norm, traj.obs, anneal)
             old_log_prob = DiagGaussian.log_prob(old_mean, old_std,
                                                  traj.action).sum(-1)
 
         N = T * B
-        mb = max(1, min(cfg.minibatch_size, N))
+        world = 1 if mesh is None else mesh.world
+        mb = max(1, min(cfg.minibatch_size // world, N))
         n_mb = N // mb
         flat = (traj.obs.reshape(N, -1), traj.action.reshape(N, -1),
                 returns.reshape(N), advantages.reshape(N),
@@ -339,7 +387,7 @@ class PPO:
                        for x in flat]
             metrics = torch.stack([
                 self._minibatch_update(state, [x[i] for x in batches],
-                                       anneal)
+                                       anneal, mesh)
                 for i in range(n_mb)])
             # KL early stop: epoch-mean KL > kl_max stops later epochs
             # (ppo.py:449-451)
@@ -348,9 +396,18 @@ class PPO:
         epoch_metrics = torch.stack(epoch_metrics)
 
         stats = episode_stats(traj)
+        if mesh is not None:
+            # logging only: ranks with no finished episode weigh in at 0
+            # (the JAX package's "cosmetic bias"); the count is summed
+            keys = ("ep_return", "ep_len", "reward_per_step", "num_episodes")
+            stats = dict(zip(keys, mesh.all_mean(
+                [stats[k].float() for k in keys])))
+            stats["num_episodes"] = torch.round(stats["num_episodes"]
+                                                * mesh.world)
         out = {"train_ep_return": stats["ep_return"],
                "train_ep_len": stats["ep_len"],
-               "reward_per_step": stats["reward_per_step"]}
+               "reward_per_step": stats["reward_per_step"],
+               "num_episodes": stats["num_episodes"]}
         for i, name in enumerate(METRICS):
             out[name] = epoch_metrics[:, i].mean()
         return out
@@ -367,12 +424,36 @@ class PPO:
     # ------------------------------------------------------------------
     # host-side driver
     # ------------------------------------------------------------------
+    def _eval_return(self, state: PPOTrainState, itr: int,
+                     mesh: Optional[Mesh]) -> float:
+        """The deterministic eval's mean return: a fresh fleet of num_envs
+        (ppo.py:456-467), on rank 0 and broadcast, so that the curriculum
+        and the save decision take the same branch on every rank."""
+        ret = torch.zeros((), device=self.device)
+        if mesh is None or mesh.rank == 0:
+            gen_eval = torch.Generator(device=self.device)
+            gen_eval.manual_seed(itr)
+            ret = self._evaluate(state, gen_eval)["ep_return"].float()
+        if mesh is not None:
+            ret = ret.reshape(1).contiguous()
+            mesh.broadcast_([ret])
+        return float(ret)
+
     def train(self, state: PPOTrainState, n_itr: int, logger=None,
               save_fn: Optional[Callable[[PPOTrainState], None]] = None,
-              verbose: bool = True) -> PPOTrainState:
+              verbose: bool = True, mesh: Optional[Mesh] = None
+              ) -> PPOTrainState:
         """Iterations with the host-side curriculum and logging (reference
-        PPO.train, ppo.py:347-505)."""
+        PPO.train, ppo.py:347-505). With `mesh` every rank of the group
+        calls it with its whole state, rank 0's after any prenormalisation:
+        the state is placed by `shard_ppo_state` (rank 0's nets,
+        optimisers and normaliser on every rank, the fleet split), the
+        iterations are SPMD ones, and rank 0 evaluates. At a save
+        every rank gathers the fleet (`gather_ppo_state`) and rank 0 calls
+        `save_fn` with it; pass the logger to rank 0 only."""
         cfg = self.config
+        if mesh is not None:
+            state = shard_ppo_state(state, mesh)
         highest_reward = -np.inf
         total_steps = 0
         curr_anneal = 1.0
@@ -389,14 +470,12 @@ class PPO:
             if do_term and curr_thresh < 0.35:
                 curr_thresh = 0.1 * 1.0006 ** (itr - start_itr)
 
-            state, metrics = self._train_iteration(state, curr_anneal)
+            state, metrics = self._train_iteration(state, curr_anneal, mesh)
             metrics = {k: float(v) for k, v in metrics.items()}
             total_steps += cfg.rollout_len * cfg.num_envs
             sample_opt_time = time.time() - t0
 
-            gen_eval = torch.Generator(device=self.device)
-            gen_eval.manual_seed(itr)
-            eval_ret = float(self._evaluate(state, gen_eval)["ep_return"])
+            eval_ret = self._eval_return(state, itr, mesh)
             eval_time = time.time() - t0 - sample_opt_time
 
             if metrics["train_ep_len"] >= cfg.max_traj_len * 0.75:
@@ -430,7 +509,11 @@ class PPO:
 
             if eval_ret > highest_reward:
                 highest_reward = eval_ret
-                if save_fn is not None:
+                if mesh is not None:
+                    full = gather_ppo_state(state, mesh)
+                    if mesh.rank == 0 and save_fn is not None:
+                        save_fn(full)
+                elif save_fn is not None:
                     save_fn(state)
         return state
 
@@ -439,10 +522,34 @@ def run_experiment(args, device=None):
     """CLI entry (reference rl/algos/ppo.py:507-584): env and nets (the
     LSTM ones of `RecurrentPPO` with `args.recurrent`), obs-norm burn-in,
     run directory, training. `device` is where the run goes (None: the
-    GPU); `args` holds apex.py's ppo flags only."""
+    GPU); `args` holds apex.py's ppo flags only.
+
+    In a process group of several ranks (`parallel.multihost.initialize`)
+    the fleet is split over them where the JAX package shards it
+    (ppo.py:621-634: feed-forward PPO, num_procs divisible by the world
+    size): rank 0 prenormalises, writes the run directory and its
+    checkpoints, and prints. Otherwise rank 0 trains alone and the other
+    ranks return None."""
+    import torch.distributed as dist
+
     from apex_tpu_torch.envs.registry import env_factory
+    from apex_tpu_torch.parallel.mesh import make_mesh
     from apex_tpu_torch.runtime.checkpoint import save_checkpoint
     from apex_tpu_torch.runtime.log import create_logger
+
+    recurrent = getattr(args, "recurrent", False)
+    mesh, rank = None, 0
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if not recurrent and args.num_procs % world == 0:
+            mesh = make_mesh(device=device)
+        elif rank:
+            return None
+        else:
+            print(f"env fleet not sharded over {world} ranks (recurrent, "
+                  f"or {args.num_procs} envs do not split evenly): rank 0 "
+                  "trains alone", flush=True)
+    lead = rank == 0
 
     env = env_factory(
         args.env_name, device=device, simrate=args.simrate,
@@ -469,7 +576,7 @@ def run_experiment(args, device=None):
         std_dev=args.std_dev, learn_stddev=args.learn_stddev,
         bounded=args.bounded)
 
-    if getattr(args, "recurrent", False):
+    if recurrent:
         # the recurrent path uses no mesh (ppo.py:600-603, 625)
         from apex_tpu_torch.agents.ppo_recurrent import RecurrentPPO
 
@@ -477,6 +584,9 @@ def run_experiment(args, device=None):
     else:
         ppo = PPO(env, cfg)
     state = ppo.init(seed=args.seed)
+    if not lead:
+        # rank 0's prenormalised state reaches this rank in `train`
+        return ppo.train(state, n_itr=args.n_itr, verbose=False, mesh=mesh)
     print(f"obs_dim: {env.observation_size}, action_dim: {env.action_size}")
     if args.input_norm_steps > 0:
         state = ppo.prenormalize(state, steps=args.input_norm_steps)
@@ -488,11 +598,17 @@ def run_experiment(args, device=None):
               "std_dev", "entropy_coeff", "clip", "minibatch_size", "epochs",
               "num_steps", "max_grad_norm", "max_traj_len"):
         print(f"  {k}: {getattr(args, k, None)}")
+    if mesh is not None:
+        print(f"env fleet sharded over {mesh.world} ranks ({mesh.backend}, "
+              f"this rank on {mesh.device}; manual-SPMD data parallelism)",
+              flush=True)
 
     def save_fn(st):
         save_checkpoint(logger.dir, st, env)
 
+    # RecurrentPPO.train takes no mesh: it trains single-process
+    spmd = {} if mesh is None else {"mesh": mesh}
     state = ppo.train(state, n_itr=args.n_itr, logger=logger,
-                      save_fn=save_fn)
+                      save_fn=save_fn, **spmd)
     logger.close()
     return state

@@ -92,11 +92,12 @@ def rollout_scan(env: Env, policy_fn: Callable[[torch.Tensor], torch.Tensor],
 
 def episode_stats(traj: Rollout):
     """Mean return and length of the episodes finished in this rollout,
-    and the mean per-step reward (rollout.py:episode_stats)."""
+    their number, and the mean per-step reward (rollout.py:129-140)."""
     n_done = torch.clamp(torch.sum(traj.done_ep_len > 0), min=1)
     return {
         "ep_return": torch.sum(traj.done_ep_return) / n_done,
         "ep_len": torch.sum(traj.done_ep_len) / n_done,
+        "num_episodes": torch.sum(traj.done_ep_len > 0),
         "reward_per_step": traj.reward.mean(),
     }
 

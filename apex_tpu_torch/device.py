@@ -55,12 +55,15 @@ def card_line() -> str:
 def count_launches(fn):
     """Run fn() on the card with every CUDA kernel's launch count at 0
     just before; returns (fn's result, seconds, {kernel: launches just
-    after}): K1 (with its heightfield launches apart as "K1-hfield"), K2,
-    K3 and K3's batch-first route "K3-bf"."""
+    after}): K1 (with its heightfield launches apart as "K1-hfield", and
+    its launches on a rank's shard of a partitioned fleet apart as
+    "K1-part"), K2, K3 and K3's batch-first route "K3-bf"."""
     from apex_tpu_torch.ops import pallas_linalg
     from apex_tpu_torch.physics import fleet_fk, fleet_kernel
 
-    wrappers = {"K1": fleet_kernel.pd_substep, "K2": fleet_fk.fleet_fk,
+    wrappers = {"K1": fleet_kernel.pd_substep,
+                "K1-part": fleet_kernel.partitioned_pd_substep,
+                "K2": fleet_fk.fleet_fk,
                 "K3": pallas_linalg.spd_inverse_bt,
                 "K3-bf": pallas_linalg.spd_inverse_bf}
     for w in wrappers.values():

@@ -170,14 +170,20 @@ def _megakernel_pd_scan(model: PhysModel, params: PhysParams,
                         phys: CassiePhysState, cmd: PDCommand, length: int):
     """Port of `_megakernel_pd_scan` (cassie_sim.py:376-447): the command
     and parameter rows stacked once, then `length` K1 substeps, each giving
-    the new state and the 44 diagnostic rows that rebuild `SubstepDiag`."""
+    the new state and the 44 diagnostic rows that rebuild `SubstepDiag`.
+    Inside `fleet_kernel.partitioned` the fleet is this rank's shard and
+    every substep is a K1-part launch on it (the JAX package's
+    `_partitioned_invoke` under a mesh); the scan itself splits nothing."""
     cmd_rows = torch.cat([cmd.p_target, cmd.d_target, cmd.p_gain,
                           cmd.d_gain, cmd.ff_torque], dim=0)   # (5 nu, B)
     static = fleet_kernel.static_rows(model, params)
+    substep = (fleet_kernel.pd_substep
+               if fleet_kernel.active_partition() is None
+               else fleet_kernel.partitioned_pd_substep)
     qpos, qvel = phys.qpos, phys.qvel
     diags, qvels, qaccs = [], [], []
     for _ in range(length):
-        qpos, qvel, qacc, diag_rows = fleet_kernel.pd_substep(
+        qpos, qvel, qacc, diag_rows = substep(
             model, params, qpos, qvel, cmd_rows, static)
         diags.append(diag_rows)
         qvels.append(qvel)

@@ -16,7 +16,12 @@ in one program. Here:
   same order, the lanes over the independent work of each phase (the
   schedule tables of `k1_schedule`, and the dof depths of O_DLVL);
 - `pd_substep` takes the plain version for CPU tensors only; for CUDA
-  tensors it launches the kernel or raises.
+  tensors it launches the kernel or raises;
+- `partitioned_pd_substep` is K1-part, the JAX package's
+  `_partitioned_invoke` (fleet_kernel.py:999): K1 launched by one rank of
+  a process group on its local shard of the fleet (`partitioned`). K1 is
+  lane-wise, one env per warp pair, so a shard's launch equals the full
+  launch's columns bit for bit and needs no source of its own.
 
 Batch-last throughout: qpos (nq, B), qvel (nv, B), cmd rows (5 nu, B)
 stacked [p_target; d_target; p_gain; d_gain; ff_torque]. Flat or tilted
@@ -27,7 +32,9 @@ terrain and the plane.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,6 +53,10 @@ from apex_tpu_torch.physics.spec import DOF_WIDTH, JointType, PhysModel
 DIAG_ROWS = 44
 MISC_ROWS = 14
 HFIELD_MISC_ROWS = 16     # + hfield_radius, hfield_active
+
+# width (envs) of the last substep through `pd_substep`, on either device:
+# under a partition, the rank's local shard (fleet_kernel.py:64-66)
+LAST_KERNEL_BATCH = None
 
 
 # ---------------------------------------------------------------------------
@@ -1057,6 +1068,8 @@ def pd_substep(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
     params)`, passed by a scan that builds it once; None builds it here.
     A heightfield model runs the kernel's heightfield branch (or raises).
     Returns (qpos2, qvel2, qacc, diag (44, B))."""
+    global LAST_KERNEL_BATCH
+    LAST_KERNEL_BATCH = qpos.shape[-1]
     if qpos.device.type == "cpu":
         return pd_substep_plain(model, params, qpos, qvel, cmd_rows)
     if qpos.device.type != "cuda":
@@ -1097,6 +1110,69 @@ def pd_substep(model: PhysModel, params: PhysParams, qpos: torch.Tensor,
     return outs
 
 
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """A fleet of `global_batch` envs split evenly over the `world` ranks
+    of a process group: each rank steps `global_batch // world` of them."""
+    world: int
+    global_batch: int
+
+    @property
+    def local_batch(self) -> int:
+        return self.global_batch // self.world
+
+
+_PARTITION: Optional[Partition] = None
+
+
+@contextlib.contextmanager
+def partitioned(world: int, global_batch: int):
+    """Within the block, the megakernel PD scan runs on this rank's shard
+    of a fleet of `global_batch` envs split over `world` ranks, through
+    `partitioned_pd_substep`. Partitions do not nest: the JAX package's
+    Manual-axis guard (cassie_sim.py:362-367) keeps a scan inside
+    shard_map from being split again."""
+    global _PARTITION
+    if _PARTITION is not None:
+        raise RuntimeError(f"the fleet is already partitioned: "
+                           f"{_PARTITION}")
+    if global_batch % world:
+        raise ValueError(f"{global_batch} envs do not split evenly over "
+                         f"{world} ranks")
+    _PARTITION = Partition(world, global_batch)
+    try:
+        yield _PARTITION
+    finally:
+        _PARTITION = None
+
+
+def active_partition() -> Optional[Partition]:
+    """The partition the PD scan runs under, or None."""
+    return _PARTITION
+
+
+def partitioned_pd_substep(model: PhysModel, params: PhysParams,
+                           qpos: torch.Tensor, qvel: torch.Tensor,
+                           cmd_rows: torch.Tensor, static=None
+                           ) -> Tuple[torch.Tensor, ...]:
+    """K1-part: inside `partitioned`, one K1 launch on this rank's shard,
+    counted apart (and as a K1 launch). The shard must be the partition's
+    `local_batch` envs wide: a fleet that is already a rank's shard is
+    never split again."""
+    part = _PARTITION
+    if part is None:
+        raise RuntimeError("partitioned_pd_substep outside `partitioned`")
+    if qpos.shape[-1] != part.local_batch:
+        raise ValueError(
+            f"K1-part: a shard of {qpos.shape[-1]} envs, want "
+            f"{part.local_batch} ({part.global_batch} envs over "
+            f"{part.world} ranks)")
+    out = pd_substep(model, params, qpos, qvel, cmd_rows, static)
+    if qpos.device.type == "cuda":
+        partitioned_pd_substep.launches += 1
+    return out
+
+
 def launch_info(model: PhysModel) -> Dict[str, int]:
     """K1's launch shape for `model` on the current card: shared memory per
     block (the envs' scratch and the model's tables), envs per block (two
@@ -1112,3 +1188,5 @@ def launch_info(model: PhysModel) -> Dict[str, int]:
 # launches of the kernel, and how many of them ran a heightfield model
 pd_substep.launches = 0
 pd_substep.hfield_launches = 0
+# launches on a rank's shard
+partitioned_pd_substep.launches = 0

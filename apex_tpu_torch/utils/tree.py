@@ -20,3 +20,13 @@ def tree_map(fn, tree, *rest):
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)})
     raise TypeError(f"unsupported tree node {type(tree).__name__}")
+
+
+def tree_leaves(tree) -> list:
+    """The tensors nested in dataclasses, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree)
+                for x in tree_leaves(getattr(tree, f.name))]
+    raise TypeError(f"unsupported tree node {type(tree).__name__}")

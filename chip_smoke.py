@@ -145,6 +145,23 @@ each printed with its seconds as it ends:
              heightfield one), and one full 5k cell, straight_1.4 (3,971
              envs: 11 terrains x 19 frictions x 19 foot masses, 959 steps
              of step_basic), its pass rate beside JAX's
+  multi_rank the multi-GPU path as ranks of one process group sharing
+             the card (`run_ranks`: subprocesses that load the library
+             built above; two ranks on one card join with gloo, which
+             stages CUDA tensors through the host, NCCL refusing a
+             duplicate GPU): K1-part at 1024 envs over 2 ranks, flat and
+             heightfield, each rank's 512-env launch gathered bit for bit
+             the whole launch's, rank 0's shard against the plain version
+             and timed beside K1 launched alone on it; two SPMD PPO
+             iterations on Cassie-v0 (256 envs, 128 per rank), counted per
+             rank (K1 and K1-part 50 per policy step), the ranks' nets and
+             optimisers bit for bit equal after, the last iteration's
+             all-reduce seconds; the same iterations in a one-rank NCCL
+             group (the same total fleet); `python -m
+             torch.distributed.run --standalone --nproc_per_node 2 -m
+             apex_tpu_torch ppo` on Cassie-v0, its one run dir named by
+             apex.py's hash, its checkpoint the whole 256-env fleet in
+             JAX's leaf shapes, loading back and evaluating
 
 The line before the last holds the kernels' JSON record, the card's name
 and power limit precede it, and the last line is the JSON verdict. Any
@@ -157,6 +174,7 @@ import dataclasses
 import json
 import os
 import pickle
+import subprocess
 import sys
 import tempfile
 import time
@@ -1086,12 +1104,14 @@ def k1_standing_inputs(B: int, gen: torch.Generator, dev, params=None,
     return k1_to(dev, qpos, qvel, params, target)
 
 
-def k1_vs_plain(m, params, qpos, qvel, rows, gen, what: str):
+def k1_vs_plain(m, params, qpos, qvel, rows, gen, what: str, got=None):
     """K1 against `pd_substep_plain` on the same inputs, each output held
     elementwise to `fleet_kernel.kernel_bounds`. Returns, per output, (max
     abs error, largest error over its bound), the plain version's ms (one
-    unjittered call, host clock) and the largest contact force."""
-    got = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+    unjittered call, host clock) and the largest contact force. `got` is
+    the kernel's output where the caller launched it (K1-part)."""
+    if got is None:
+        got = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
     torch.cuda.synchronize()
     t0 = time.time()
     fleet_kernel.pd_substep_plain(m, params, qpos, qvel, rows)
@@ -1335,9 +1355,10 @@ def check_parity(dev):
 
 def check_counts(name, got, want):
     """Launch counts against what the path implies; a count dict's K3-bf
-    is 0 unless `want` names it (only the per-env tier launches it)."""
+    is 0 unless `want` names it (only the per-env tier launches it), and so
+    is its K1-part (only a rank's shard of a partitioned fleet)."""
     if isinstance(got, dict):
-        want = {"K3-bf": 0, **want}
+        want = {"K3-bf": 0, "K1-part": 0, **want}
     if got != want:
         raise AssertionError(f"{name}: launch counts {got}, want {want}")
 
@@ -2597,6 +2618,330 @@ def run_suites(tag: str, ckpt: str):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# several ranks: K1-part, the SPMD iteration, NCCL, the CLI under torchrun
+# ---------------------------------------------------------------------------
+
+# K1-part's fleet over MR_WORLD ranks sharing the card (gloo); the SPMD
+# iteration's Cassie-v0 PPO (dyn-rand, mirror): 256 envs, 8 policy steps
+# per env, local minibatch 512 // world, 3 epochs, two iterations
+MR_WORLD, MR_FLEET = 2, 1024
+SPMD_ENVS, SPMD_STEPS, SPMD_MB, SPMD_ITR, SPMD_NORM = 256, 2048, 512, 2, 1024
+RANK_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(job: str, world: int, **kw):
+    """`rank_main(job)` in `world` processes, the ranks of one group on
+    this host's first card (APEX_* variables; LOCAL_WORLD_SIZE = world, so
+    more than one rank per card joins with gloo, one with NCCL). Each rank
+    loads the library the parent built. Returns the ranks' JSON results in
+    rank order; a rank that fails ends the others and raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        base = dict(os.environ, APEX_COORD_ADDR=f"127.0.0.1:{_free_port()}",
+                    APEX_NUM_PROCS=str(world), LOCAL_WORLD_SIZE=str(world),
+                    PYTHONPATH=root)
+        code = ("import json, sys, chip_smoke; "
+                "chip_smoke.rank_main(sys.argv[1], sys.argv[2], "
+                "json.loads(sys.argv[3]))")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, job, out, json.dumps(kw)],
+            cwd=root, env=dict(base, APEX_PROC_ID=str(r), LOCAL_RANK=str(r)))
+            for r in range(world)]
+        t_end = time.time() + RANK_TIMEOUT_S
+        try:
+            while True:
+                rcs = [p.poll() for p in procs]
+                if any(rc not in (None, 0) for rc in rcs) \
+                        or all(rc == 0 for rc in rcs):
+                    break
+                if time.time() > t_end:
+                    raise AssertionError(f"{job}: ranks still running after "
+                                         f"{RANK_TIMEOUT_S} s")
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        if rcs != [0] * world:
+            raise AssertionError(f"{job}: rank exit codes {rcs}")
+        results = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+        return results
+
+
+def rank_main(job: str, out: str, kw: dict) -> None:
+    """One rank of `run_ranks`: join the group, run the job, write its
+    result."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multihost
+    from apex_tpu_torch.parallel.mesh import make_mesh
+
+    multihost.initialize()
+    mesh = make_mesh()
+    try:
+        res = RANK_JOBS[job](mesh, **kw)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def k1_part_job(mesh, timed: bool = True):
+    """K1-part at MR_FLEET envs over the group, flat and heightfield: every
+    rank draws the same whole fleet (k1_inputs), launches K1 on all of it,
+    then K1-part on its block; the gathered blocks must equal the whole
+    launch bit for bit, at a local width of MR_FLEET / world. With
+    `timed`, rank 0 holds its block against the plain version and times
+    K1-part and K1 launched alone on the same block while the other ranks
+    wait."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel.mesh import env_block
+    from apex_tpu_torch.utils.tree import tree_map
+
+    gen = torch.Generator()           # the fleets: the same on every rank
+    gen.manual_seed(14)
+    spread_gen = torch.Generator()    # rank 0's rounding envelopes
+    spread_gen.manual_seed(15)
+    out = {}
+    for terrain in (0.0, 0.06):
+        m = cassie_model(enable_hfield=bool(terrain))
+        tag = "K1-part-hfield" if terrain else "K1-part"
+        params, qpos, qvel, rows = k1_inputs(MR_FLEET, gen, mesh.device,
+                                             terrain)
+        whole = fleet_kernel.pd_substep(m, params, qpos, qvel, rows)
+        block = env_block(MR_FLEET, mesh.rank, mesh.world)
+        take = lambda x: x[..., block].contiguous()
+        p_s, q_s, v_s, r_s = (tree_map(take, params), take(qpos),
+                              take(qvel), take(rows))
+        fleet_kernel.LAST_KERNEL_BATCH = None
+        with fleet_kernel.partitioned(mesh.world, MR_FLEET):
+            shard = fleet_kernel.partitioned_pd_substep(m, p_s, q_s, v_s,
+                                                        r_s)
+            width = fleet_kernel.LAST_KERNEL_BATCH
+            gathered = [mesh.all_gather(x, -1) for x in shard]
+            if width != MR_FLEET // mesh.world:
+                raise AssertionError(f"{tag}: a launch {width} envs wide, "
+                                     f"want {MR_FLEET // mesh.world}")
+            if not all(torch.equal(a, b) for a, b in zip(gathered, whole)):
+                raise AssertionError(f"{tag}: the gathered shards differ "
+                                     "from the whole launch")
+            res = dict(local_width=width, bitwise=True)
+            if timed and mesh.rank == 0:
+                worst, plain_ms, _ = k1_vs_plain(
+                    m, p_s, q_s, v_s, r_s, spread_gen, f"{tag} shard",
+                    got=shard)
+                ms = device_ms(lambda: fleet_kernel.partitioned_pd_substep(
+                    m, p_s, q_s, v_s, r_s), 20, "pd_substep_kernel")
+                alone_ms = device_ms(lambda: fleet_kernel.pd_substep(
+                    m, p_s, q_s, v_s, r_s), 20, "pd_substep_kernel")
+                bnd, by, _ = bound_ms(k1_bytes(m, p_s), k1_flops(m, p_s))
+                res.update(
+                    max_abs_err=max(v[0] for v in worst.values()),
+                    worst_over_bound=max(v[1] for v in worst.values()),
+                    ms=ms, k1_alone_ms=alone_ms, plain_ms=plain_ms,
+                    bound_ms=bnd, bound_by=by, library_ms=None)
+        dist.barrier()
+        out[tag] = res
+    return out
+
+
+def lockstep(mesh, state) -> bool:
+    """Whether every rank holds the same replicated tensors bit for bit
+    (the nets, the normaliser, both optimisers' moments and counts)."""
+    from apex_tpu_torch.parallel.mesh import replicated_tensors
+
+    counts = torch.tensor([float(state.actor_opt.count),
+                           float(state.critic_opt.count)], device=mesh.device)
+    flat = torch.cat([x.detach().reshape(-1)
+                      for x in replicated_tensors(state)] + [counts])
+    rows = mesh.all_gather(flat[None], 0)
+    return all(torch.equal(row, rows[0]) for row in rows)
+
+
+def spmd_job(mesh, n_itr: int = SPMD_ITR):
+    """`n_itr` SPMD iterations of PPO on Cassie-v0 (K1) over the group:
+    rank 0 prenormalises, `shard_ppo_state` places the state, each
+    iteration counted (K1 and K1-part 50 per policy step of the rank's
+    block, K2 2 per step). The last iteration times the all-reduces
+    (`Mesh.timing`). Returns per iteration the seconds, the counts and
+    the metrics, the all-reduce seconds and calls of the timed one, and
+    whether the ranks' replicated tensors agree bit for bit after."""
+    from apex_tpu_torch.parallel.mesh import shard_ppo_state
+
+    env = CassieEnv(dynamics_randomization=True, device=mesh.device)
+    cfg = PPOConfig(num_envs=SPMD_ENVS, num_steps=SPMD_STEPS,
+                    max_traj_len=TRAJ_LEN, minibatch_size=SPMD_MB)
+    ppo = PPO(env, cfg)
+    state = ppo.init(seed=0)
+    if mesh.rank == 0:
+        state = ppo.prenormalize(state, steps=SPMD_NORM)
+    state = shard_ppo_state(state, mesh)
+    if state.runner.obs.shape[0] != SPMD_ENVS // mesh.world:
+        raise AssertionError(f"a rank's block of {state.runner.obs.shape}")
+    want = {"K1": SIMRATE * cfg.rollout_len, "K1-hfield": 0,
+            "K1-part": SIMRATE * cfg.rollout_len, "K2": 2 * cfg.rollout_len,
+            "K3": 0}
+    itrs = []
+    for itr in range(n_itr):
+        mesh.timing = itr == n_itr - 1
+        mesh.reduce_calls, mesh.reduce_seconds = 0, 0.0
+        (state, metrics), secs, n = count_launches(
+            lambda: ppo._train_iteration(state, 1.0, mesh))
+        check_counts(f"spmd iteration {itr} rank {mesh.rank}", n, want)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"spmd iteration {itr}: {metrics}")
+        itrs.append(dict(seconds=secs, launches=n, metrics=metrics))
+    same = lockstep(mesh, state)
+    if not same:
+        raise AssertionError(f"rank {mesh.rank}: the ranks' nets, "
+                             "normaliser or optimisers differ")
+    return dict(iterations=itrs, reduce_seconds=mesh.reduce_seconds,
+                reduce_calls=mesh.reduce_calls, backend=mesh.backend,
+                lockstep=same)
+
+
+RANK_JOBS = {"k1_part": k1_part_job, "spmd": spmd_job}
+
+# the CLI under torchrun: one iteration of 256 envs over two ranks
+MR_CLI_ITR, MR_CLI_TRAJ, MR_CLI_NORM = 1, 20, 512
+
+
+def torchrun_cli():
+    """`python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    apex_tpu_torch ppo` on Cassie-v0: exit 0, one run directory named by
+    apex.py's hash, its checkpoint the whole fleet in the leaf shapes and
+    dtypes of a single-process state of the same configuration, loading
+    back through the port's loader and evaluating."""
+    import glob
+
+    from apex_tpu_torch.runtime.checkpoint import to_jax_leaves
+
+    logdir = os.path.join("chiprun_out", f"smoke_torchrun_{os.getpid()}")
+    argv = ["ppo", "--env_name", "Cassie-v0", "--dyn_random", "--mirror",
+            "--num_procs", str(SPMD_ENVS), "--num_steps", str(SPMD_STEPS),
+            "--minibatch_size", str(SPMD_MB), "--max_traj_len",
+            str(MR_CLI_TRAJ), "--n_itr", str(MR_CLI_ITR),
+            "--input_norm_steps", str(MR_CLI_NORM), "--logdir", logdir]
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(MR_WORLD), "-m", "apex_tpu_torch", *argv],
+        capture_output=True, text=True, timeout=RANK_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))))
+    secs = time.time() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"torchrun exited with {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    line = f"env fleet sharded over {MR_WORLD} ranks (gloo"
+    if line not in out.stdout:
+        raise AssertionError(f"torchrun: no '{line}' in\n{out.stdout}")
+    runs = glob.glob(os.path.join(logdir, "Cassie-v0", "*"))
+    if len(runs) != 1:
+        raise AssertionError(f"torchrun: run directories {runs}")
+    (run_dir,) = runs
+    with open(os.path.join(run_dir, "experiment.pkl"), "rb") as f:
+        name = f"{args_hash(pickle.load(f))}-seed0"
+    if os.path.basename(run_dir) != name:
+        raise AssertionError(f"torchrun: run dir {run_dir}, want {name}")
+    with open(os.path.join(run_dir, "checkpoint.pkl"), "rb") as f:
+        leaves = pickle.load(f)
+    env = CassieEnv(dynamics_randomization=True)
+    ref = to_jax_leaves(PPO(env, PPOConfig(num_envs=SPMD_ENVS)).init(0), env)
+    shapes = lambda xs: [(np.shape(x), np.asarray(x).dtype.str) for x in xs]
+    if shapes(leaves) != shapes(ref):
+        raise AssertionError("torchrun: the checkpoint's leaves are not a "
+                             f"{SPMD_ENVS}-env state's")
+    ret, ln = eval_checkpoint(run_dir, n_episodes=8, traj_len=10,
+                              device="cuda")
+    if not (np.isfinite(ret) and ln > 0):
+        raise AssertionError(f"torchrun run dir gave return {ret}, length "
+                             f"{ln}")
+    return dict(seconds=secs, run_dir=run_dir, leaves=len(leaves),
+                reloaded_return=ret)
+
+
+def multi_rank():
+    """The phase: K1-part over MR_WORLD gloo ranks sharing the card, the
+    SPMD iteration over them and over a one-rank NCCL group (the same
+    total fleet), and the CLI under torchrun. Returns (K1-part's figures,
+    the per-rank K1-part count of the SPMD run, the phase's summary)."""
+    t0 = time.time()
+    k1p = run_ranks("k1_part", MR_WORLD)
+    k1p_s = time.time() - t0
+    for tag, res in k1p[0].items():
+        print(f"  {tag} B={MR_FLEET} over {MR_WORLD} ranks: local width "
+              f"{res['local_width']}, gathered bit for bit; shard vs plain "
+              f"max err {res['max_abs_err']:.3e} "
+              f"({res['worst_over_bound']:.2f} x bound); kernel "
+              f"{res['ms']:.4f} ms, K1 alone at {res['local_width']} "
+              f"{res['k1_alone_ms']:.4f} ms, plain {res['plain_ms']:.1f} "
+              f"ms, bound {res['bound_ms'] * 1e3:.3f} us "
+              f"({res['bound_by']})", flush=True)
+    t0 = time.time()
+    spmd = run_ranks("spmd", MR_WORLD)
+    spmd_s = time.time() - t0
+    t0 = time.time()
+    (nccl,) = run_ranks("spmd", 1)
+    nccl_s = time.time() - t0
+    for tag, runs in (("gloo", spmd), ("nccl", [nccl])):
+        for r, run in enumerate(runs):
+            print(f"  spmd {tag} rank {r}: " + "; ".join(
+                f"itr {i} {it['seconds']:.3f} s, kl "
+                f"{it['metrics']['kl']:.5f}, episodes "
+                f"{it['metrics']['num_episodes']:.0f}"
+                for i, it in enumerate(run["iterations"]))
+                + f"; all-reduces {run['reduce_calls']} in "
+                f"{run['reduce_seconds']:.3f} s", flush=True)
+    if spmd[0]["backend"] != "gloo" or nccl["backend"] != "nccl":
+        raise AssertionError(f"backends {spmd[0]['backend']}, "
+                             f"{nccl['backend']}")
+    if spmd[0]["iterations"][-1]["metrics"] != \
+            spmd[1]["iterations"][-1]["metrics"]:
+        raise AssertionError("spmd: the ranks' metrics differ")
+    t0 = time.time()
+    cli = torchrun_cli()
+    last = lambda run: run["iterations"][-1]["seconds"]
+    part_launches = sum(it["launches"]["K1-part"]
+                        for it in spmd[0]["iterations"])
+    summary = dict(
+        k1_part_s=f"{k1p_s:.1f}",
+        k1_part_ms={t: f"{r['ms']:.4f}" for t, r in k1p[0].items()},
+        k1_alone_ms={t: f"{r['k1_alone_ms']:.4f}"
+                     for t, r in k1p[0].items()},
+        spmd_s=f"{spmd_s:.1f}", nccl_s=f"{nccl_s:.1f}",
+        spmd_itr_s_gloo_2_ranks=[
+            f"{max(r['iterations'][i]['seconds'] for r in spmd):.3f}"
+            for i in range(SPMD_ITR)],
+        spmd_itr_s_nccl_1_rank=[f"{it['seconds']:.3f}"
+                                for it in nccl["iterations"]],
+        gloo_reduce_share=f"{spmd[0]['reduce_seconds'] / last(spmd[0]):.4f}",
+        gloo_reduce_calls=spmd[0]["reduce_calls"],
+        nccl_reduce_share=f"{nccl['reduce_seconds'] / last(nccl):.4f}",
+        k1_part_launches_per_rank=part_launches,
+        lockstep=all(r["lockstep"] for r in spmd),
+        torchrun_s=f"{cli['seconds']:.1f}",
+        torchrun_run_dir=cli["run_dir"],
+        torchrun_reloaded_return=f"{cli['reloaded_return']:.4f}")
+    return k1p[0], part_launches, summary
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -2741,6 +3086,11 @@ def main() -> int:
         suites = run_suites(tag, ckpt)
         phase(f"suites_{tag}", t0, suites=json.dumps(suites))
 
+    # several ranks of one group, each loading the library built above
+    t0 = time.time()
+    k1_part, k1_part_n, mr = multi_rank()
+    phase("multi_rank", t0, **mr)
+
     record = {"kernels": [
         {"name": "K1 pd_substep", "route": "cuda",
          "source": "apex_tpu_torch/csrc/fleet_kernel.cu",
@@ -2776,6 +3126,14 @@ def main() -> int:
          "route": "cuda", "source": "apex_tpu_torch/csrc/spd_inverse.cu",
          "replaces": "apex_tpu/ops/pallas_linalg.py:142",
          "launches": per_env_n["K3-bf"], **k3_bf[(32, N_ENVS)]},
+        {"name": f"K1-part partitioned_pd_substep, a rank's "
+                 f"{MR_FLEET // MR_WORLD} of {MR_FLEET} envs",
+         "route": "cuda", "source": "apex_tpu_torch/csrc/fleet_kernel.cu",
+         "replaces": "apex_tpu/physics/fleet_kernel.py:999",
+         "launches": k1_part_n,
+         **{k: k1_part["K1-part"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}},
     ]}
     at_fleet = {"K1": {k: v for k, v in k1[FLEET].items()
                        if k != "max_abs_err"},
@@ -2786,7 +3144,10 @@ def main() -> int:
                 "K3-bf n=9 B=2048": k3_bf[(9, 2048)],
                 "K3 n=9 B=2048": k3[("time", (9, 2048))],
                 "K2": {k: v for k, v in k2[FLEET].items()
-                       if k != "max_abs_err"}}
+                       if k != "max_abs_err"},
+                "K1-part heightfield, a rank's 512": {
+                    k: v for k, v in k1_part["K1-part-hfield"].items()
+                    if k != "max_abs_err"}}
     print(f"at B={FLEET}: {json.dumps(at_fleet)}", flush=True)
     print(f"total {time.time() - _T0:.1f} s", flush=True)
     print(card, flush=True)

@@ -14,10 +14,11 @@ from apex_tpu_torch.physics import engine, fleet, fleet_fk, fleet_kernel
 from apex_tpu_torch.physics.cassie_sim import CASSIE_QPOS_INIT, cassie_model
 from apex_tpu_torch.physics.engine import PhysParams
 from apex_tpu_torch.envs.walker2d import walker_model
-from chip_smoke import (CELL_5K_ENVS, SUITE_TRIALS, fk_tree_inputs,
-                        fk_tree_model, k1_5k_terrain_inputs, k1_at_scale,
-                        k1_inputs, k1_ramp_inputs, k1_standing_inputs,
-                        random_spd, walker_inputs, walker_step_vs_plain)
+from chip_smoke import (CELL_5K_ENVS, MR_FLEET, MR_WORLD, SIMRATE,
+                        SUITE_TRIALS, fk_tree_inputs, fk_tree_model,
+                        k1_5k_terrain_inputs, k1_at_scale, k1_inputs,
+                        k1_ramp_inputs, k1_standing_inputs, random_spd,
+                        run_ranks, walker_inputs, walker_step_vs_plain)
 
 
 @pytest.fixture
@@ -627,3 +628,25 @@ def test_recurrent_ppo_walker_iteration_on_the_card_matches_the_cpu(cuda):
     for a, b in zip(leaves["cuda"], leaves["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-5,
                                    atol=2e-3 * cfg.lr * steps)
+
+
+def test_k1_part_shards_are_the_whole_launch_bit_for_bit(cuda):
+    """K1-part over 2 ranks of a gloo group on this card
+    (`chip_smoke.k1_part_job`): each rank's launch is 512 envs wide and
+    the gathered launches equal K1 on all 1024 envs bit for bit, on flat
+    ground and on terrain."""
+    for res in run_ranks("k1_part", MR_WORLD, timed=False):
+        for tag in ("K1-part", "K1-part-hfield"):
+            assert res[tag] == dict(local_width=MR_FLEET // MR_WORLD,
+                                    bitwise=True), tag
+
+
+def test_one_rank_nccl_spmd_iteration(cuda):
+    """One SPMD PPO iteration on Cassie-v0 in a one-rank NCCL group
+    (`chip_smoke.spmd_job`): counted (every K1 launch a K1-part one),
+    finite metrics, the all-reduces through NCCL."""
+    (res,) = run_ranks("spmd", 1, n_itr=1)
+    assert res["backend"] == "nccl" and res["lockstep"]
+    n = res["iterations"][0]["launches"]
+    assert n["K1"] == n["K1-part"] > 0 and n["K1"] % SIMRATE == 0
+    assert res["reduce_calls"] > 0
