@@ -84,7 +84,10 @@ def build_clock(swing_duration: torch.Tensor, stance_duration: torch.Tensor,
     (B,), stance_mode one-hot (3, B)."""
     sw = swing_duration * freq
     st = stance_duration * freq
-    total = 2 * sw + 2 * st          # phaselen
+    # phaselen 2 sw + 2 st, as XLA compiles it: the doublings folded into
+    # the constant 2 freq and the sum contracted into one fused
+    # multiply-add (the 5k's gait clock floors by it, so its ulp counts)
+    total = fma_f32(swing_duration, 2 * freq, stance_duration * (2 * freq))
     off_sw = sw * strict_relaxer     # swing relax offset
     off_st = st * strict_relaxer     # double-stance relax offset
 
@@ -128,9 +131,31 @@ def load_reward_clock(name: str, batch: int, device,
                      phaselen=torch.full((batch,), phaselen, device=device))
 
 
+def fma_f32(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add gives it,
+    on any device: the product of two floats is exact in float64, TwoSum
+    keeps the error of the float64 sum, and that error settles the one
+    case where rounding the float64 sum to float32 rounds twice (the sum
+    on a tie between two floats)."""
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float32).to(
+        torch.float64)
+    a, b, c = f64(a), f64(b), f64(c)
+    p = a * b
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)        # p + c == s + err exactly
+    r = s.to(torch.float32)
+    r64 = r.to(torch.float64)
+    d = s - r64                          # where s lies from r
+    away = torch.nextafter(r, torch.where(d > 0, torch.inf, -torch.inf))
+    tie = (d != 0) & (2 * d == away.to(torch.float64) - r64)
+    return torch.where(tie & (err * d > 0), away, r)
+
+
 def speed_to_durations(speed: torch.Tensor):
-    """Swing/stance durations from commanded speed (cassie.py:556-558)."""
-    total_duration = (0.9 - 0.25 / 3.0 * torch.abs(speed)) / 2.0
+    """Swing/stance durations from commanded speed (cassie.py:556-558), as
+    XLA compiles them: 0.9 - c |speed| is one fused multiply-add."""
+    total_duration = fma_f32(torch.abs(speed), -(0.25 / 3.0), 0.9) / 2.0
     swing = (0.30 + (0.40 / 3.0) * torch.abs(speed)) * total_duration
     stance = (0.70 - (0.40 / 3.0) * torch.abs(speed)) * total_duration
     return swing, stance

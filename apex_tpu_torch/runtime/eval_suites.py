@@ -392,10 +392,13 @@ def _terrain_config(name: str, seed: int = 0):
     raise ValueError(f"unknown terrain {name}")
 
 
+MISSIONS_5K = ("curvy", "straight", "90_left", "90_right")
+SPEEDS_5K = (0.5, 0.9, 1.4, 1.9, 2.3, 2.8)
+
+
 @torch.no_grad()
-def eval_5k_matrix(policy_fn: Callable, env,
-                   missions=("curvy", "straight", "90_left", "90_right"),
-                   mission_speeds=(0.5, 0.9, 1.4, 1.9, 2.3, 2.8),
+def eval_5k_matrix(policy_fn: Callable, env, missions=MISSIONS_5K,
+                   mission_speeds=SPEEDS_5K,
                    terrains=DEFAULT_5K_TERRAINS, frictions=None,
                    foot_mass_scales=None, max_steps: int = 0, seed: int = 0,
                    on_cell: Callable | None = None):
@@ -517,6 +520,35 @@ def eval_5k_matrix(policy_fn: Callable, env,
         idx = [list(terrains).index(t) for t in ref_terr]
         out["pass_rate_ref_subset"] = passed[:, :, idx].mean()
     return out
+
+
+def gait_clock_5k(env):
+    """The gait clock that every trial of a 5k cell follows: the phase,
+    the count of wrapped cycles and the clock's length after each
+    schedule step's update_speed_state (with its phase floor) and
+    step_basic's phase advance, as eval_5k_matrix drives them. No physics
+    enters it, so the grid's 24 (mission, speed) schedules run as one
+    fleet of clocks, each held at its last speed past its end. Returns
+    {"<mission>_<speed>": (phase, counter, phaselen)}, numpy arrays of
+    the schedule's length."""
+    from apex_tpu_torch.envs.trajectory import CommandTrajectory
+
+    names = [f"{m}_{s}" for m in MISSIONS_5K for s in SPEEDS_5K]
+    speeds = [np.float32(CommandTrajectory(n).speed_cmd[:-1]) for n in names]
+    maxlen = max(len(sp) for sp in speeds)
+    grid = np.stack([np.concatenate([sp, np.full(maxlen - len(sp), sp[-1])])
+                     for sp in speeds], axis=1)
+    state, _ = env.reset_for_test(len(names))
+    rows = []
+    for sp in torch.as_tensor(grid, device=env.device):
+        state = env.update_speed_state(state, sp)
+        time_, phase, counter = env._advance_phase(state)
+        state = dataclasses.replace(state, time=time_, phase=phase,
+                                    counter=counter)
+        rows.append((phase, counter, state.clock.phaselen))
+    seq = [torch.stack(x).cpu().numpy() for x in zip(*rows)]
+    return {n: tuple(x[:len(sp), b] for x in seq)
+            for b, (n, sp) in enumerate(zip(names, speeds))}
 
 
 def compare_policies(path_a: str, path_b: str, n_episodes: int = 32,

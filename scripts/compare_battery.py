@@ -8,7 +8,13 @@ by trial. Needs numpy only.
 
 Prints, per figure, JAX's value, the port's and their difference, and
 for the command suite the ci95 of the difference of two independent
-rates, 1.96 sqrt(p (1 - p) (1/n_jax + 1/n_port)).
+rates, 1.96 sqrt(p (1 - p) (1/n_jax + 1/n_port)). With --cells, the 5k
+rate of every (mission, speed) cell, JAX's beside the port's; with
+--before DIR, an earlier port battery's too, and whether the cell's pass
+tensor repeats it trial for trial.
+
+    python scripts/compare_battery.py curves/cassie_mk5c_eval \
+        curves/torch_cassie_mk5c_eval --cells --before OLD_DIR
 """
 import argparse
 import json
@@ -22,6 +28,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("jax_dir")
     ap.add_argument("port_dir")
+    ap.add_argument("--cells", action="store_true")
+    ap.add_argument("--before", default=None)
     args = ap.parse_args()
     jdir, pdir = pathlib.Path(args.jax_dir), pathlib.Path(args.port_dir)
     js = json.loads((jdir / "summary.json").read_text())
@@ -69,6 +77,33 @@ def main():
             print(f"5k trials agreeing: {agree.mean():.4f} of {agree.size};"
                   f" per mission " + ", ".join(
                       f"{x:.4f}" for x in agree.mean(axis=(1, 2, 3, 4))))
+        if args.cells:
+            print_cells(js["5k"], jp, pp, args.before)
+
+
+def print_cells(grid_summary, jp, pp, before_dir=None):
+    """The 5k rate per (mission, speed) cell: JAX, the port, and an
+    earlier port battery with whether the cell repeats it bit for bit."""
+    bp = None
+    if before_dir:
+        with open(pathlib.Path(before_dir) / "eval_5k.pkl", "rb") as f:
+            bp = np.asarray(pickle.load(f)["passed"])
+    missions = list(grid_summary["by_mission"])
+    speeds = list(grid_summary["by_speed"])
+    for mi, m in enumerate(missions):
+        for si, v in enumerate(speeds):
+            line = (f"5k cell {m}_{v}: jax {jp[mi, si].mean():.5f} port "
+                    f"{pp[mi, si].mean():.5f} diff "
+                    f"{pp[mi, si].mean() - jp[mi, si].mean():+.5f}")
+            if bp is not None:
+                same = bool((bp[mi, si] == pp[mi, si]).all())
+                line += (f" before {bp[mi, si].mean():.5f} "
+                         f"{'same trials' if same else 'moved'}")
+            print(line)
+    for mi, m in enumerate(missions):
+        print(f"5k mission {m}: jax {jp[mi].mean():.5f} port "
+              f"{pp[mi].mean():.5f} diff {pp[mi].mean() - jp[mi].mean():+.5f}"
+              + (f" before {bp[mi].mean():.5f}" if bp is not None else ""))
 
 
 if __name__ == "__main__":

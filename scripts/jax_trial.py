@@ -22,6 +22,18 @@ eval_5k_matrix runs it, one env.
         --ckpt curves/cassie_mk5c_ckpt --replay s1_mk5c.json
     JAX_PLATFORMS=cpu python scripts/jax_trial.py \\
         --ckpt curves/cassie_mk5c_ckpt --snapshot curves/s1_mk5c/5k_3692.pkl
+
+With --clock NAME... (5k schedules such as straight_2.3), the gait clock
+of one 5k trial with its physics (flat, friction and foot mass 1) is held
+against the clock alone: the phase, cycle count and clock length after
+every step, from `eval_5k_matrix`'s own program at one env (a host
+callback after each step_basic records them), from this script's
+per-step jitted 5k step, and from the physics-free scan of
+`tests/test_torch_clock_5k.py`. Prints, for each of the first two, at
+how many steps it parts from the physics-free sequence.
+
+    JAX_PLATFORMS=cpu python scripts/jax_trial.py \\
+        --ckpt curves/cassie_mk5c_ckpt --clock straight_2.3 90_left_0.5
 """
 import argparse
 import importlib.util
@@ -91,7 +103,9 @@ def run_command_trial(env, policy, draws, steps_per_command=200):
             "passed": not fallen}
 
 
-def run_5k_trial(env, policy, cell, seed=0):
+def run_5k_trial(env, policy, cell, seed=0, clock=None):
+    """One 5k trial stepped by a jitted step; clock, a list, gets the
+    (phase, counter, phaselen) after every step."""
     import dataclasses
 
     mission, speed, terrain, fric, fmass = cell
@@ -128,8 +142,87 @@ def run_5k_trial(env, policy, cell, seed=0):
         fallen |= bool(q[2] < 0.4)
         if first_bad is None and not np.isfinite(q).all():
             first_bad = i
+        if clock is not None:
+            clock.append((float(state.phase), int(state.counter),
+                          float(state.clock.phaselen)))
     return {"steps": n, "first_nonfinite_step": first_bad,
             "passed": not fallen}
+
+
+def clock_alone(env, name):
+    """(phase, counter, phaselen) per step of a 5k schedule with no
+    physics: eval_5k_matrix's program (jit of vmap of a scan, the
+    schedule unbatched) over update_speed_state, the heading and
+    step_basic's phase advance (apex_tpu/envs/cassie.py:511-514)."""
+    cmd = CommandTrajectory(name)
+    n = cmd.trajlen - 1
+
+    def single(speeds, orients, key):
+        state, _ = env.reset_for_test(key)
+
+        def body(st, c):
+            st = env.update_speed_state(st, c[0]).replace(orient_add=c[1])
+            phase = st.phase + st.phase_add
+            wrapped = phase > st.clock.phaselen
+            st = st.replace(phase=jnp.where(wrapped, 0.0, phase),
+                            counter=st.counter + wrapped.astype(jnp.int32))
+            return st, (st.phase, st.counter, st.clock.phaselen)
+
+        return jax.lax.scan(body, state, (speeds, orients))[1]
+
+    seq = jax.jit(jax.vmap(single, in_axes=(None, None, 0)))(
+        jnp.asarray(cmd.speed_cmd[:n], jnp.float32),
+        jnp.asarray(cmd.orient[:n], jnp.float32),
+        jax.random.split(jax.random.PRNGKey(0), 1))
+    return [np.asarray(x)[0] for x in seq]
+
+
+class _ClockRecorder:
+    """The env with a host callback after each step_basic that records
+    (time, phase, counter, phaselen)."""
+
+    def __init__(self, env):
+        self._env, self.rows = env, []
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+    def step_basic(self, state, action):
+        st, obs = self._env.step_basic(state, action)
+        jax.debug.callback(
+            lambda *x: self.rows.append(tuple(np.asarray(v).item()
+                                              for v in x)),
+            st.time, st.phase, st.counter, st.clock.phaselen)
+        return st, obs
+
+
+def run_clock(env, policy, name):
+    """The clock of one 5k trial with physics against the clock alone."""
+    from apex_tpu.runtime.eval_suites import eval_5k_matrix
+
+    mission, speed = name.rsplit("_", 1)
+    alone = clock_alone(env, name)
+    rec = _ClockRecorder(env)
+    res = eval_5k_matrix(policy, rec, missions=(mission,),
+                         mission_speeds=(float(speed),), terrains=("flat",),
+                         frictions=(1.0,), foot_mass_scales=(1.0,))
+    rows = sorted(rec.rows)
+    matrix = [np.float32([r[1] for r in rows]), np.int32([r[2] for r in rows]),
+              np.float32([r[3] for r in rows])]
+    stepped = []
+    trial = run_5k_trial(env, policy, (mission, float(speed), "flat", 1.0,
+                                       1.0), clock=stepped)
+    stepped = [np.float32([r[0] for r in stepped]),
+               np.int32([r[1] for r in stepped]),
+               np.float32([r[2] for r in stepped])]
+    out = {"schedule": name, "steps": int(alone[0].size),
+           "passed_matrix": bool(np.asarray(res["passed"]).all()),
+           "passed_stepped": trial["passed"]}
+    for label, seq in (("eval_5k_matrix", matrix), ("stepped", stepped)):
+        out[label] = {
+            f: (int(np.sum(a != b)) if a.shape == b.shape else "length")
+            for f, a, b in zip(("phase", "counter", "phaselen"), seq, alone)}
+    return out
 
 
 def run_snapshot(env, path):
@@ -170,6 +263,7 @@ def main(argv=None):
     ap.add_argument("--ckpt", required=True)
     ap.add_argument("--replay", default=None)
     ap.add_argument("--snapshot", nargs="*", default=[])
+    ap.add_argument("--clock", nargs="*", default=[])
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     ppo, state, _ = _loader()(args.ckpt)
@@ -178,7 +272,11 @@ def main(argv=None):
     def policy(obs):
         return state.actor.act(state.norm, obs, deterministic=True)
 
-    out = {"ckpt": args.ckpt, "commands": [], "5k": [], "snapshots": {}}
+    out = {"ckpt": args.ckpt, "commands": [], "5k": [], "snapshots": {},
+           "clock": []}
+    for name in args.clock:
+        out["clock"].append(run_clock(env, policy, name))
+        print("clock", json.dumps(out["clock"][-1]), flush=True)
     for path in args.snapshot:
         out["snapshots"][path] = run_snapshot(env, path)
         print("snapshot", path, json.dumps(out["snapshots"][path]),

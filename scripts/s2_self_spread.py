@@ -7,6 +7,9 @@ the way ROADMAP.md's limit (a) measures the JAX fleet against itself.
         --mission 90_left --speed 0.5 --seeds 1 2 3 4 \\
         --out chiprun_out/s2_self_spread.json
 
+With --subset TERRAIN..., each run's rate over those terrains' trials
+too, and their self-spread.
+
 Prints each run's pass rate and its flips against the unperturbed run,
 beside the committed pass tensors of the JAX battery
 (`curves/cassie_mk5c_eval/eval_5k.pkl`) and the port's
@@ -76,6 +79,7 @@ def main() -> int:
     ap.add_argument("--jax", default="curves/cassie_mk5c_eval/eval_5k.pkl")
     ap.add_argument("--port",
                     default="curves/torch_cassie_mk5c_eval/eval_5k.pkl")
+    ap.add_argument("--subset", nargs="*", default=[])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -86,6 +90,13 @@ def main() -> int:
 
     jax_cell = committed_cell(args.jax, args.mission, args.speed)
     port_cell = committed_cell(args.port, args.mission, args.speed)
+    rows = [list(eval_suites.DEFAULT_5K_TERRAINS).index(t)
+            for t in args.subset]
+    # the cell flattened terrain-major: 361 trials a terrain
+    per = 19 * 19
+    sub = np.zeros(len(eval_suites.DEFAULT_5K_TERRAINS) * per, bool)
+    for r in rows:
+        sub[r * per:(r + 1) * per] = True
     runs = []
     base = None
     for seed in [None] + list(args.seeds):
@@ -113,6 +124,8 @@ def main() -> int:
         if jax_cell is not None:
             run.update(only_here_vs_jax=int((passed & ~jax_cell).sum()),
                        only_jax=int((jax_cell & ~passed).sum()))
+        if rows:
+            run["subset_pass_rate"] = float(passed[sub].mean())
         runs.append(run)
         print(json.dumps(run), flush=True)
 
@@ -130,6 +143,15 @@ def main() -> int:
         unperturbed_is_committed_port=(
             None if port_cell is None else bool(np.array_equal(base,
                                                                port_cell))))
+    if rows:
+        sub_rates = [r["subset_pass_rate"] for r in runs]
+        summary.update(
+            subset=args.subset, subset_envs=int(sub.sum()),
+            subset_self_spread=max(sub_rates) - min(sub_rates),
+            subset_committed_jax=(None if jax_cell is None
+                                  else float(jax_cell[sub].mean())),
+            subset_committed_port=(None if port_cell is None
+                                   else float(port_cell[sub].mean())))
     print(json.dumps({k: v for k, v in summary.items() if k != "runs"}),
           flush=True)
     if args.out:
