@@ -46,7 +46,8 @@ class Rollout(NamedTuple):
 
 def init_runner(env: Env, generator: torch.Generator,
                 num_envs: int) -> RunnerState:
-    env_state, obs = env.reset(env.sample_reset_noise(generator, num_envs))
+    env_state, obs = env.reset_fresh(
+        env.sample_reset_noise(generator, num_envs))
     return RunnerState(
         env_state=env_state, obs=obs,
         traj_len=torch.zeros((num_envs,), dtype=torch.int32,

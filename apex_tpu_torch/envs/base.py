@@ -42,6 +42,12 @@ class Env:
     def reset(self, noise) -> Tuple[Any, torch.Tensor]:
         raise NotImplementedError
 
+    def reset_fresh(self, noise) -> Tuple[Any, torch.Tensor]:
+        """The reset of a fresh fleet (`init_runner`). JAX compiles it as
+        a program of its own, and an env whose reset that program computes
+        otherwise than the auto-reset overrides this."""
+        return self.reset(noise)
+
     def step(self, state, action: torch.Tensor, noise
              ) -> Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]:
         raise NotImplementedError

@@ -399,14 +399,15 @@ class CassieEnv(Env):
         return build_clock(swing, stance, mode, self.strict_relaxer,
                            self.have_incentive, float(self._freq))
 
-    def _make_clock(self, noise: ResetNoise):
+    def _make_clock(self, noise: ResetNoise, fresh_fleet: bool = False):
         """The episode's gait clock (envs/cassie.py:356-375): the loaded
         clock, the phase profile's drawn gait, or the commanded speed's
         with the reward's stance mode (with "switch", grounded below 1.8
-        m/s and aerial above). Returns (clock, swing, stance, mode)."""
+        m/s and aerial above); `fresh_fleet` as `speed_to_durations`
+        takes it. Returns (clock, swing, stance, mode)."""
         B = noise.speed.shape[-1]
         if self._loaded_clock is not None:
-            swing, stance = speed_to_durations(noise.speed)
+            swing, stance = speed_to_durations(noise.speed, fresh_fleet)
             return (self._loaded(B), swing, stance,
                     self._stance_mode.expand(3, B))
         if self.command_profile == "phase":
@@ -414,7 +415,7 @@ class CassieEnv(Env):
             mode = torch.nn.functional.one_hot(noise.mode, 3).T.to(
                 swing.dtype)
         else:
-            swing, stance = speed_to_durations(noise.speed)
+            swing, stance = speed_to_durations(noise.speed, fresh_fleet)
             mode = self._stance_mode.expand(3, B)
             if self._switch:
                 mode = torch.where(
@@ -450,10 +451,15 @@ class CassieEnv(Env):
                                     device=dev),
             l_high=no, r_high=no.clone(), phase_add=phase_add)
 
-    def reset(self, noise: ResetNoise):
+    def reset_fresh(self, noise: ResetNoise):
+        return self.reset(noise, fresh_fleet=True)
+
+    def reset(self, noise: ResetNoise, fresh_fleet: bool = False):
+        """The auto-reset's arithmetic, or with `fresh_fleet` that of JAX's
+        `init_runner` program (`speed_to_durations`)."""
         B = noise.speed.shape[-1]
         dev = self.device
-        clock, swing, stance, mode = self._make_clock(noise)
+        clock, swing, stance, mode = self._make_clock(noise, fresh_fleet)
         # random starting phase (cassie.py:561)
         phase = torch.floor(noise.phase_u * torch.floor(clock.phaselen + 1.0))
         phys = CassiePhysState.standing(B, dev)

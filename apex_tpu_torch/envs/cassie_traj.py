@@ -347,7 +347,12 @@ class CassieTrajEnv(Env):
                                   y=noise.pitch, x=noise.roll))
         return params, noise.motor_enc, noise.joint_enc
 
-    def reset(self, noise: TrajResetNoise):
+    def reset_fresh(self, noise: TrajResetNoise):
+        return self.reset(noise, fresh_fleet=True)
+
+    def reset(self, noise: TrajResetNoise, fresh_fleet: bool = False):
+        """The auto-reset's arithmetic, or with `fresh_fleet` that of JAX's
+        `init_runner` program (`speed_to_durations`)."""
         B, dev = noise.side_speed.shape[-1], self.device
         if self.aslip:
             traj_idx = noise.speed_idx
@@ -355,14 +360,16 @@ class CassieTrajEnv(Env):
             phaselen = (self._traj_len[traj_idx] - 1).to(torch.float32)
         else:
             traj_idx = torch.zeros((B,), dtype=torch.int64, device=dev)
-            speed = noise.speed_idx / 10.0
+            # randint(0, 41) / 10.0, which XLA compiles as randint * 0.1f
+            # (one ulp from the quotient at some speeds)
+            speed = noise.speed_idx.to(torch.float32) * 0.1
             phaselen = torch.full((B,), self._agility_phaselen, device=dev)
         if self.command_profile == "phase":
             swing, stance = noise.swing, noise.stance
             mode = torch.nn.functional.one_hot(noise.mode, 3).T.to(
                 swing.dtype)
         else:
-            swing, stance = speed_to_durations(speed)
+            swing, stance = speed_to_durations(speed, fresh_fleet)
             mode = self._stance_mode.expand(3, B)
         clock = build_clock(swing, stance, mode, self.strict_relaxer,
                             self.have_incentive, float(self._freq))

@@ -152,12 +152,20 @@ def fma_f32(a, b, c) -> torch.Tensor:
     return torch.where(tie & (err * d > 0), away, r)
 
 
-def speed_to_durations(speed: torch.Tensor):
+def speed_to_durations(speed: torch.Tensor, fresh_fleet: bool = False):
     """Swing/stance durations from commanded speed (cassie.py:556-558), as
-    XLA compiles them: 0.9 - c |speed| is one fused multiply-add."""
-    total_duration = fma_f32(torch.abs(speed), -(0.25 / 3.0), 0.9) / 2.0
-    swing = (0.30 + (0.40 / 3.0) * torch.abs(speed)) * total_duration
-    stance = (0.70 - (0.40 / 3.0) * torch.abs(speed)) * total_duration
+    XLA compiles them: 0.9 - c |speed| is one fused multiply-add. In the
+    program of a fresh fleet's reset (`init_runner`'s jit of the vmapped
+    reset) XLA also contracts 0.30 + c |speed| and 0.70 - c |speed|
+    (`tests/test_torch_clock_resets.py`)."""
+    v = torch.abs(speed)
+    total_duration = fma_f32(v, -(0.25 / 3.0), 0.9) / 2.0
+    if fresh_fleet:
+        swing = fma_f32(v, 0.40 / 3.0, 0.30) * total_duration
+        stance = fma_f32(v, -(0.40 / 3.0), 0.70) * total_duration
+    else:
+        swing = (0.30 + (0.40 / 3.0) * v) * total_duration
+        stance = (0.70 - (0.40 / 3.0) * v) * total_duration
     return swing, stance
 
 

@@ -277,6 +277,44 @@ def restore_recurrent_ppo(state, leaves: Sequence[np.ndarray], env):
     return state
 
 
+@torch.no_grad()
+def restore_ppo_learner(state, leaves: Sequence[np.ndarray]):
+    """Write the learner of a JAX `PPOTrainState`'s leaves (as
+    `to_jax_leaves` lists them) into a port `PPOTrainState` of the same
+    sizes, in place: the nets, the normaliser, and both optimisers' step
+    counts and Adam moments (their injected hyperparameters are left as
+    the state has them). The runner and generator stay the state's.
+    Returns the state."""
+    it = iter(leaves)
+
+    def put(t: torch.Tensor, transpose: bool = False) -> None:
+        x = np.asarray(next(it))
+        x = x.T if transpose else x
+        if tuple(x.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf of shape {x.shape} for a "
+                             f"tensor of shape {tuple(t.shape)}")
+        t.copy_(torch.as_tensor(np.array(x, order="C"), dtype=t.dtype))
+
+    for net in (state.actor, state.critic):
+        for p, tr in _jax_params(net):
+            put(p, tr)
+    for t in (state.norm.mean, state.norm.var, state.norm.count):
+        put(t)
+    for opt, net in ((state.actor_opt, state.actor),
+                     (state.critic_opt, state.critic)):
+        # inject_hyperparams' count and its eps, learning_rate and
+        # max_grad_norm, then adam's count, mu and nu (`_opt_leaves`)
+        for _ in range(4):
+            next(it)
+        opt.count = int(next(it))
+        index = {id(p): i for i, p in enumerate(opt.params)}
+        order = [(index[id(p)], tr) for p, tr in _jax_params(net)]
+        for moments in (opt.mu, opt.nu):
+            for i, tr in order:
+                put(moments[i], tr)
+    return state
+
+
 def load_checkpoint(path: str, learn_stddev: bool = False,
                     name: str = "checkpoint.pkl") -> CheckpointState:
     """Read <path>/<name> (or a .pkl path) written by the JAX package."""

@@ -96,10 +96,11 @@ each printed with its seconds as it ends:
              the checkpoints the CassieEnv switches unlock: main, main2 and
              mk3 (exact estimator), mk5a (heading curriculum,
              speed_phase_add), mk5b (5k_speed_reward, 60 substeps) and
-             cassie_traj (CassieTraj-v0), counted, on the port's draws and
-             on JAX's (`jax_draws`), the latter held to JAX's return on
-             the CPU within 1.8 %, or within JAX's own seed spread where
-             that is wider
+             cassie_traj (CassieTraj-v0), and the port-trained
+             torch_cassie_mk4_hardened_seed0 (scripts/torch_train_curve.py),
+             counted, on the port's draws and on JAX's (`jax_draws`), the
+             latter held to JAX's return on the CPU within 1.8 %, or
+             within JAX's own seed spread where that is wider
   step_1024  ms per policy step at the training fleet (1024 envs), and
              CUDA launches per substep from torch.profiler
   train      `python -m apex_tpu_torch ppo` in-process, 2 iterations of
@@ -110,6 +111,13 @@ each printed with its seconds as it ends:
              one-frame history, the min profile and the clock reward;
              CassieTraj-v0; CassieStanding-v0; counted, each run dir
              loading back
+  curves     the learning-curve scripts in-process, counted:
+             `scripts/torch_train_curve.py cassie --dyn-random` for 3
+             iterations at 1024 envs with an eval every 2 (the JAX tool's
+             npz keys, finite returns, the checkpoint loading back), one
+             `ars` and one `td3_sync` iteration of
+             `torch_train_offpolicy_curve.py` and one iteration of
+             `torch_train_recurrent_curve.py walker`, on Walker2d
   walker_fleet
              Walker2d on the fleet tier at 2048 envs: K2 on its model and
              K3 on its M + hD against their plain versions (timed, with
@@ -220,16 +228,19 @@ TERRAIN_CKPTS = {"mk5c": ("curves/cassie_mk5c_ckpt", 60),
 N_ENVS, TRAJ_LEN, FLEET = 64, 300, 1024
 EVAL_SEEDS = (42, 0, 1)
 # the megakernel-tier returns of the three checkpoints the port ran before
-# the CassieEnv switches (chip runs on an H100 80GB HBM3 at 700 W, since the
-# clock length became XLA's fused multiply-add, `rewards/clock.fma_f32`);
-# the switches must leave them bit for bit
+# the CassieEnv switches (chip runs on an H100 80GB HBM3 at 700 W, since a
+# fresh fleet's reset builds its clocks as JAX's `init_runner` program
+# does, `Env.reset_fresh`); the switches must leave them bit for bit
 EARLIER_RETURNS = {
-    "eval": {42: 134.18824768066406, 0: 132.28884887695312,
-             1: 124.35839080810547},
-    "eval_mk5c": {42: 265.97174072265625, 0: 273.67987060546875,
-                  1: 264.78253173828125},
-    "eval_mk4_terrain": {42: 149.1636505126953, 0: 143.1919708251953,
-                         1: 139.03550720214844}}
+    "eval": {42: 134.17620849609375, 0: 132.28341674804688,
+             1: 124.5030517578125},
+    "eval_mk5c": {42: 265.31829833984375, 0: 273.6381530761719,
+                  1: 264.85650634765625},
+    "eval_mk4_terrain": {42: 149.14862060546875, 0: 144.77532958984375,
+                         1: 138.7381591796875}}
+# JAX's returns of the port-trained checkpoint's evaluation at seeds 42, 0
+# and 1 (scripts/reference_eval_seeds.py on the CPU)
+TORCH_MK4_SEED0_JAX = (60.9184, 59.7965, 59.8611)
 # the checkpoints the switches unlock: (run dir, substeps per policy step,
 # JAX's returns of the 64-env, 300-step evaluation at seeds 42, 0 and 1 on
 # the CPU, scripts/reference_eval_seeds.py); curves/jax_eval_draws holds the
@@ -241,7 +252,13 @@ SWITCH_CKPTS = {
     "mk5a": ("curves/cassie_mk5a_ckpt", 50, (145.8103, 152.2901, 150.7646)),
     "mk5b": ("curves/cassie_mk5b_ckpt", 60, (270.1442, 267.4449, 267.9929)),
     "cassie_traj": ("curves/cassie_traj_ckpt", 50,
-                    (155.0116, 159.7726, 157.1118))}
+                    (155.0116, 159.7726, 157.1118)),
+    # trained by the port (scripts/torch_train_curve.py, seed 0's best
+    # eval of 1,000 iterations), JAX's figures as the others'
+    "torch_mk4_seed0": ("curves/torch_cassie_mk4_hardened_seed0_ckpt", 50,
+                        TORCH_MK4_SEED0_JAX)}
+# the draws files not named after their run dir (`draws_file`)
+DRAWS_NAMES = {"torch_cassie_mk4_hardened_seed0_ckpt": "torch_mk4_seed0"}
 EVAL_BOUND = 0.018     # the JAX package's bound between its physics tiers
 FLEET_TRAJ_LEN = 30                # depth of the fleet-tier evaluation
 SIMRATE = 50
@@ -1490,10 +1507,11 @@ def step_1024(dev):
 
 def draws_file(ckpt: str, folder: str = "curves/jax_eval_draws") -> str:
     """The file of JAX's evaluation draws for a run dir: its name without
-    "cassie_" and "_ckpt"."""
+    "cassie_" and "_ckpt" (or its DRAWS_NAMES entry)."""
     name = os.path.basename(os.path.normpath(ckpt))
-    return os.path.join(folder, name.removeprefix("cassie_")
-                        .removesuffix("_ckpt") + ".npz")
+    name = DRAWS_NAMES.get(name, name.removeprefix("cassie_")
+                           .removesuffix("_ckpt"))
+    return os.path.join(folder, name + ".npz")
 
 
 @contextlib.contextmanager
@@ -1765,6 +1783,99 @@ def train(dev):
         actor_loss=[f"{x:.5f}" for x in scalars["Misc/Actor Loss"]],
         mirror_loss=[f"{x:.6f}" for x in scalars["Misc/Mirror Loss"]],
         reloaded_return=f"{ret:.4f}")
+
+
+# scripts/torch_train_curve.py at the mk4_hardened settings: iterations,
+# eval cadence, and the burn-in's policy steps (10,000 // 1024)
+CURVE_ITR, CURVE_EVAL_EVERY, CURVE_NORM_STEPS = 3, 2, 10000 // FLEET
+# the keys of tools/train_curve.py's npz (tests/test_torch_curves.py holds
+# the scripts' files to the tools' source)
+CURVE_NPZ_KEYS = {"iters", "wall_s", "env_steps", "train_return",
+                  "eval_return", "eval_len", "ep_len", "num_envs",
+                  "steps_per_iter"}
+OFFPOLICY_NPZ_KEYS = {"iters", "wall_s", "env_steps", "eval_return", "algo",
+                      "env", "seed"}
+
+
+def load_script(name: str):
+    """A module of scripts/, imported from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join("scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def curves():
+    """The learning-curve scripts in-process on the card, counted.
+    `torch_train_curve.py cassie --dyn-random` (1024 envs, 32 steps each,
+    minibatch 2,048): K1 once per substep of the burn-in, of each
+    iteration's rollout and of each 300-step eval (at iterations 0 and 2);
+    K2 twice per policy step and once per fresh fleet (PPO.init, after the
+    burn-in, each eval); K3 never. Its npz has the JAX tool's keys and
+    finite returns, and its checkpoint loads back. Then on Walker2d (4 K2
+    and 4 K3 per env step, none at a reset): `torch_train_offpolicy_curve.
+    py ars` for one iteration (128 envs, 400 steps), `td3_sync` for one
+    (80 steps of 64 envs, the 400-step eval) and
+    `torch_train_recurrent_curve.py walker` for one (the 39-step burn-in,
+    a 64-step chunk, the 300-step eval)."""
+    out = {}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as d:
+        argv = ["cassie", "--dyn-random", "--n-itr", str(CURVE_ITR),
+                "--eval-every", str(CURVE_EVAL_EVERY), "--out", d]
+        _, secs, n = count_launches(
+            lambda: load_script("torch_train_curve").main(argv))
+        evals = len(range(0, CURVE_ITR, CURVE_EVAL_EVERY)) + (
+            (CURVE_ITR - 1) % CURVE_EVAL_EVERY != 0)
+        steps = (CURVE_NORM_STEPS + CURVE_ITR * (TRAIN_STEPS // FLEET)
+                 + evals * TRAJ_LEN)
+        check_counts("curves cassie", n, {
+            "K1": SIMRATE * steps, "K1-hfield": 0, "K2": 2 * steps + 2 + evals,
+            "K3": 0})
+        with np.load(os.path.join(d, "cassie_ppo_seed0.npz")) as f:
+            if set(f.files) != CURVE_NPZ_KEYS:
+                raise AssertionError(f"curves: npz keys {sorted(f.files)}")
+            rets = f["eval_return"]
+            if len(rets) != evals or not np.all(np.isfinite(rets)) or \
+                    not np.all(np.isfinite(f["train_return"])):
+                raise AssertionError(f"curves: eval returns {rets}, train "
+                                     f"returns {f['train_return']}")
+        ret, ln = eval_checkpoint(os.path.join(d, "cassie_ppo_seed0_ckpt"),
+                                  n_episodes=8, traj_len=10, device="cuda")
+        if not (np.isfinite(ret) and ln > 0):
+            raise AssertionError(f"curves: reloaded run gave {ret}, {ln}")
+        out["cassie"] = dict(
+            seconds=f"{secs:.1f}", k1_launches=n["K1"], k2_launches=n["K2"],
+            eval_return=[f"{r:.4f}" for r in rets],
+            reloaded_return=f"{ret:.4f}")
+        print(f"  curves cassie: {out['cassie']}", flush=True)
+
+        runs = {"ars": ("torch_train_offpolicy_curve",
+                        ["ars", "--n-itr", "1"], 400, OFFPOLICY_NPZ_KEYS),
+                "td3_sync": ("torch_train_offpolicy_curve",
+                             ["td3_sync", "--timesteps", str(80 * 64)],
+                             80 + 400, OFFPOLICY_NPZ_KEYS),
+                "recurrent_ppo": ("torch_train_recurrent_curve",
+                                  ["walker", "--n-itr", "1"],
+                                  10000 // 256 + 64 + TRAJ_LEN,
+                                  OFFPOLICY_NPZ_KEYS | {"train_return"})}
+        for name, (script, args, env_steps, keys) in runs.items():
+            _, secs, n = count_launches(lambda: load_script(script).main(
+                [*args, "--out", d]))
+            per = WALKER_SUBSTEPS * env_steps
+            check_counts(f"curves {name}", n, {
+                "K1": 0, "K1-hfield": 0, "K2": per, "K3": per})
+            with np.load(os.path.join(d, f"{name}_walker_seed0.npz")) as f:
+                if set(f.files) != keys or \
+                        not np.all(np.isfinite(f["eval_return"])):
+                    raise AssertionError(f"curves {name}: {dict(f)}")
+                out[name] = dict(seconds=f"{secs:.1f}", k2_launches=per,
+                                 eval_return=f"{f['eval_return'][-1]:.4f}")
+            print(f"  curves {name}: {out[name]}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3104,6 +3215,8 @@ def main() -> int:
     phase("train", t0, **train(dev))
     t0 = time.time()
     phase("train_new_envs", t0, **train_new_envs())
+    t0 = time.time()
+    phase("curves", t0, **curves())
 
     # Walker2d on the fleet tier, and the learners beyond PPO
     t0 = time.time()
