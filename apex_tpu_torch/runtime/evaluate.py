@@ -34,11 +34,14 @@ class Experiment(NamedTuple):
     args: SimpleNamespace
 
 
-def load_experiment(path: str, device=None, physics=None) -> Experiment:
+def load_experiment(path: str, device=None, physics=None,
+                    keep_traj: bool = False) -> Experiment:
     """Rebuild (env, actor, critic, norm, args) from a run directory, with
     the JAX package's defaults for settings the run did not record.
     `physics` picks the PD scan's tier ("megakernel", "fleet" or
-    "per_env"; None: the device's default)."""
+    "per_env"; None: the device's default). Like the JAX package's load,
+    it does not pass the run's --traj on, so a CassieTraj-v0 run loads with
+    the walking gait library; `keep_traj` builds the run's own."""
     device = resolve_device(device)
     with open(os.path.join(path, "experiment.pkl"), "rb") as f:
         args = SimpleNamespace(**pickle.load(f))
@@ -57,7 +60,8 @@ def load_experiment(path: str, device=None, physics=None) -> Experiment:
         max_speed=getattr(args, "max_speed", 4.0),
         orient_jump_prob=getattr(args, "orient_jump_prob", 0.0),
         speed_phase_add=getattr(args, "speed_phase_add", False),
-        pd_tier=physics)
+        pd_tier=physics,
+        **({"traj": getattr(args, "traj", "walking")} if keep_traj else {}))
 
     learn_stddev = getattr(args, "learn_stddev", False)
     ckpt = load_checkpoint(path, learn_stddev=learn_stddev)

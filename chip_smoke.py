@@ -9,21 +9,29 @@ reward) through the whole-substep kernel K1, the same evaluation through
 the fleet tier at reduced depth, the evaluations of the two terrain
 checkpoints through K1's heightfield branch (`curves/cassie_mk5c_ckpt`:
 noise terrain, 5k_speed_reward, dyn-rand off, 60 substeps;
-`curves/cassie_mk4_terrain_ckpt`: mk4_hardened on noise terrain), and two
-PPO iterations of `python -m apex_tpu_torch ppo` at the training fleet
-and one each on three new env configurations, and Walker2d through the
+`curves/cassie_mk4_terrain_ckpt`: mk4_hardened on noise terrain), a PPO
+iteration of `python -m apex_tpu_torch ppo` at the training fleet and one
+each on three new env configurations, and Walker2d through the
 fleet tier (K2 + K3) under PPO, TD3, DDPG and ARS and TD3 on Cassie
 through K1, and the recurrent learners (the committed recurrent PPO
 checkpoint held to JAX, `ppo --recurrent` on Walker2d and Cassie, `rdpg`
 and `ars --recurrent`), and the per-env engine tier (the mk4_hardened
-evaluation and Walker2d through K3's batch-first route) and the analysis
-and profiling tools -- after building the hand-written CUDA kernels from
-`apex_tpu_torch/csrc/`
-and holding each against its plain PyTorch version on the card. Phases,
-each printed with its seconds as it ends:
+evaluation and Walker2d through K3's batch-first route), the analysis
+and profiling tools and the tools/ front ends -- after building the
+hand-written CUDA kernels from `apex_tpu_torch/csrc/` and holding each
+against its plain PyTorch version on the card. Phases, each printed with
+its seconds as it ends:
 
   device     require CUDA; card name, power limit, torch and CUDA versions
   build      nvcc build of the kernels (seconds; registers and spills)
+  analysis   (first, while the profiler keeps whole traces)
+             `runtime/analysis.py` on mk4_hardened (megakernel tier):
+             input_and_state_record (20 steps) and perturb_response (4
+             angles x 2 phases, 16 steps), in the JAX package's shapes,
+             counted; `runtime/profiling.py`'s trace of one policy step,
+             holding the annotated region and its 50 K1 launches (a
+             trace that lost launches is taken again, up to
+             TRACE_ATTEMPTS: scripts/trace_window.py)
   K3-bf      K3's batch-first route (the per-env engine's inverse of
              M + hD) on (B, n, n) at (64 / 1024, 32, 32) on Cassie's M + hD
              and (2048, 9, 9): per row against its plain version, bit for
@@ -71,26 +79,33 @@ each printed with its seconds as it ends:
   eval       the 64-env, 300-step evaluation on the megakernel tier for
              seeds 42, 0 and 1; launch counts of K1, K2 and K3 must equal
              what the code path implies
-  eval_fleet the same evaluation on the fleet tier, 30 steps, seed 42
+  eval_fleet the same evaluation on the fleet tier, 15 steps, seed 42
   eval_mk5c, eval_mk4_terrain
              the terrain checkpoints' 64-env, 300-step evaluations on the
-             megakernel tier (seeds 42, 0, 1), every K1 launch a
+             megakernel tier (seed 42), every K1 launch a
              heightfield one; eval_fleet_mk5c: mk5c on the fleet tier,
-             30 steps; the returns of eval, eval_mk5c and eval_mk4_terrain
+             15 steps; the returns of eval, eval_mk5c and eval_mk4_terrain
              bit for bit those of earlier runs
   per_env    the per-env engine tier: a 64-env Cassie substep against the
              fleet tier at the JAX package's tier-to-tier tolerances; the
-             mk4_hardened evaluation on it (64 envs, 30 steps, seed 42),
+             mk4_hardened evaluation on it (64 envs, 15 steps, seed 42),
              counted (K3-bf once per substep, nothing else), ms per policy
              step and launches per substep; Walker2d on it at 2048 envs
              for 3 steps against its fleet tier, counted (4 K3-bf a step)
-  analysis   `runtime/analysis.py` on mk4_hardened (megakernel tier):
-             input_and_state_record (20 steps) and perturb_response (4
-             angles x 2 phases, 16 steps), in the JAX package's shapes,
-             counted; `runtime/profiling.py`'s trace of one policy step,
-             holding the annotated region and its 50 K1 launches (a
-             trace that lost launches is taken again, up to
-             TRACE_ATTEMPTS: scripts/trace_window.py)
+  tools      the nine `scripts/torch_<tool>.py` front ends of tools/ at a
+             small size, each counted exactly: megakernel_divergence on
+             mk5a at 8 envs x 4 steps on all three tiers (their returns
+             within 1.8 % of each other), estimator_divergence (five rows
+             of 8 envs x 4 steps, "exact" equal to "firmware tau=12ms"),
+             mirror_policy_check (16 envs, 4 steps), vis_perturb (its 4 x
+             1 grid of 208 steps) and vis_input_and_state (20 steps) on
+             mk4_hardened; aslip_tests' grf, footplace and taskspace on a
+             one-iteration aslip run of CassieTraj-v0; make_mission into a
+             temporary directory read back through the mission loader;
+             plot_policy and render_gait (one K2 launch) on the files of
+             record_policy, eval --out and eval --gait; each output in the
+             JAX tool's keys and shapes, finite (the figures are skipped
+             where matplotlib does not import)
   eval_switches
              the 64-env, 300-step evaluation (seed 42, megakernel tier) of
              the checkpoints the CassieEnv switches unlock: main, main2 and
@@ -98,13 +113,13 @@ each printed with its seconds as it ends:
              speed_phase_add), mk5b (5k_speed_reward, 60 substeps) and
              cassie_traj (CassieTraj-v0), and the port-trained
              torch_cassie_mk4_hardened_seed0 (scripts/torch_train_curve.py),
-             counted, on the port's draws and on JAX's (`jax_draws`), the
-             latter held to JAX's return on the CPU within 1.8 %, or
-             within JAX's own seed spread where that is wider
+             counted, on JAX's draws (`jax_draws`), held to JAX's return
+             on the CPU within 1.8 %, or within JAX's own seed spread
+             where that is wider
   step_1024  ms per policy step at the training fleet (1024 envs), and
              CUDA launches per substep from torch.profiler
-  train      `python -m apex_tpu_torch ppo` in-process, 2 iterations of
-             32,768 env steps at 1024 envs; the run directory loads back
+  train      `python -m apex_tpu_torch ppo` in-process, one iteration of
+             8,192 env steps at 1024 envs; the run directory loads back
   train_new_envs
              one `ppo` iteration each through the CLI (256 envs, 2,048
              steps, a 50-step evaluation): Cassie-v0 with learned gains, a
@@ -112,8 +127,8 @@ each printed with its seconds as it ends:
              CassieTraj-v0; CassieStanding-v0; counted, each run dir
              loading back
   curves     the learning-curve scripts in-process, counted:
-             `scripts/torch_train_curve.py cassie --dyn-random` for 3
-             iterations at 1024 envs with an eval every 2 (the JAX tool's
+             `scripts/torch_train_curve.py cassie --dyn-random` for one
+             iteration at 1024 envs and its eval (the JAX tool's
              npz keys, finite returns, the checkpoint loading back), one
              `ars` and one `td3_sync` iteration of
              `torch_train_offpolicy_curve.py` and one iteration of
@@ -138,14 +153,13 @@ each printed with its seconds as it ends:
   recurrent_ppo_walker
              `curves/recurrent_ppo_walker_seed0_ckpt` evaluated (256 envs,
              400 steps) on JAX's seed-42 reset draws, held within 1.8 % of
-             JAX's return, and on the port's own; two iterations of `ppo
-             --recurrent` on Walker2d at 256 envs; each counted, the run
-             dir loading back
+             JAX's return; one iteration of `ppo --recurrent` on Walker2d
+             at 256 envs; each counted, the run dir loading back
   recurrent_ppo_cassie
              one `ppo --recurrent --mirror` iteration on Cassie-v0 (64
              envs, K1), counted
   rdpg, ars_recurrent
-             `rdpg` (64 envs, 400-step episodes, 8 of the CLI's 80 BPTT
+             `rdpg` (64 envs, 400-step episodes, 4 of the CLI's 80 BPTT
              updates, each timed; the recurrent evaluation) and `ars
              --recurrent` on Walker2d at the CLI's widths, one iteration
              each, counted
@@ -189,6 +203,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import pathlib
 import pickle
 import subprocess
 import sys
@@ -226,18 +241,19 @@ CKPT = "curves/cassie_mk4_hardened_ckpt"
 TERRAIN_CKPTS = {"mk5c": ("curves/cassie_mk5c_ckpt", 60),
                  "mk4_terrain": ("curves/cassie_mk4_terrain_ckpt", 50)}
 N_ENVS, TRAJ_LEN, FLEET = 64, 300, 1024
-EVAL_SEEDS = (42, 0, 1)
 # the megakernel-tier returns of the three checkpoints the port ran before
 # the CassieEnv switches (chip runs on an H100 80GB HBM3 at 700 W, since a
 # fresh fleet's reset builds its clocks as JAX's `init_runner` program
-# does, `Env.reset_fresh`); the switches must leave them bit for bit
+# does, `Env.reset_fresh`), at the seeds each is evaluated at; the
+# switches must leave them bit for bit (the terrain checkpoints' seeds 0
+# and 1, 273.6381530761719 / 264.85650634765625 on mk5c and
+# 144.77532958984375 / 138.7381591796875 on mk4_terrain, are no longer
+# run, to keep the script inside its time: PERF.md section 6)
 EARLIER_RETURNS = {
     "eval": {42: 134.17620849609375, 0: 132.28341674804688,
              1: 124.5030517578125},
-    "eval_mk5c": {42: 265.31829833984375, 0: 273.6381530761719,
-                  1: 264.85650634765625},
-    "eval_mk4_terrain": {42: 149.14862060546875, 0: 144.77532958984375,
-                         1: 138.7381591796875}}
+    "eval_mk5c": {42: 265.31829833984375},
+    "eval_mk4_terrain": {42: 149.14862060546875}}
 # JAX's returns of the port-trained checkpoint's evaluation at seeds 42, 0
 # and 1 (scripts/reference_eval_seeds.py on the CPU)
 TORCH_MK4_SEED0_JAX = (60.9184, 59.7965, 59.8611)
@@ -260,7 +276,7 @@ SWITCH_CKPTS = {
 # the draws files not named after their run dir (`draws_file`)
 DRAWS_NAMES = {"torch_cassie_mk4_hardened_seed0_ckpt": "torch_mk4_seed0"}
 EVAL_BOUND = 0.018     # the JAX package's bound between its physics tiers
-FLEET_TRAJ_LEN = 30                # depth of the fleet-tier evaluation
+FLEET_TRAJ_LEN = 15                # depth of the fleet-tier evaluation
 SIMRATE = 50
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -1018,6 +1034,289 @@ def check_analysis(dev):
                 trace_k1_launches=k1_in_trace, traces=attempt + 1)
 
 
+# the tools phase: the divergence run's checkpoint, fleet and depth; the
+# other Cassie tools' fleet, depth and run
+TOOLS_CKPT = "curves/cassie_mk5a_ckpt"
+TOOL_ENVS, TOOL_STEPS, TOOL_RECORD_STEPS = 8, 4, 20
+# the aslip run of the tools phase: one `ppo` iteration of CassieTraj-v0
+ASLIP_PPO = ["ppo", "--traj", "aslip", "--num_procs", "16", "--num_steps",
+             "64", "--max_traj_len", "4", "--n_itr", "1",
+             "--input_norm_steps", "16", "--minibatch_size", "16", "--seed",
+             "0"]
+ASLIP_PPO_STEPS = 16 // 16 + 64 // 16 + 4
+ASLIP_IDX = 10             # the aslip gait of footplace and taskspace
+
+
+def run_tool(name: str, argv, counted: bool = True):
+    """scripts/<name>.py's main(argv) in-process on the card, its printed
+    lines shown and kept: (result, seconds, launches or None, lines)."""
+    import io
+
+    buf = io.StringIO()
+    fn = lambda: load_script(name).main(argv)
+    with contextlib.redirect_stdout(buf):
+        if counted:
+            result, secs, n = count_launches(fn)
+        else:
+            t0 = time.time()
+            result, n = fn(), None
+            secs = time.time() - t0
+    text = buf.getvalue()
+    print("".join(f"    {line}\n" for line in text.splitlines()), end="",
+          flush=True)
+    return result, secs, n, text.splitlines()
+
+
+def job_counts(steps: int, simrate: int = SIMRATE):
+    """Launches of an analysis job's rollout of `steps` steps on the
+    megakernel tier: K1 every substep; K2 at the reset, at the pinned
+    state's observation and once a step (the pre-step foot positions)."""
+    return {"K1": simrate * steps, "K1-hfield": 0, "K2": steps + 2, "K3": 0}
+
+
+def finite_npz(path: str, keys: set, what: str):
+    with np.load(path) as f:
+        if set(f.files) != keys or not all(
+                np.isfinite(f[k].astype(np.float64)).all() for k in f.files):
+            raise AssertionError(f"{what}: keys {sorted(f.files)}, want "
+                                 f"{sorted(keys)}, or non-finite values")
+        return {k: f[k].shape for k in f.files}
+
+
+def plotted(lines, what: str) -> str:
+    """The plot line a tool ends with: the figure written or, without
+    matplotlib (the card's machine), skipped."""
+    if not (lines and (lines[-1].startswith("wrote ")
+                       or lines[-1].startswith("(plot skipped: "))):
+        raise AssertionError(f"{what}: last line {lines[-1:]}")
+    return "written" if lines[-1].startswith("wrote ") else "skipped"
+
+
+def tool_divergence():
+    """torch_megakernel_divergence.py on mk5a, TOOL_ENVS x TOOL_STEPS, all
+    three tiers: each tier's launches exactly (the script counts each),
+    the JAX tool's JSON keys, and the fleet and per-env returns within
+    EVAL_BOUND of the megakernel tier's."""
+    (res, launches), secs, _, _ = run_tool(
+        "torch_megakernel_divergence", [TOOLS_CKPT, "--envs",
+                                        str(TOOL_ENVS), "--steps",
+                                        str(TOOL_STEPS)], counted=False)
+    T, S = TOOL_STEPS, SIMRATE
+    want = {"megakernel": {"K1": T * S, "K1-hfield": 0, "K2": 2 * T + 1,
+                           "K3": 0},
+            "fleet": {"K1": 0, "K1-hfield": 0, "K2": T * (S + 2) + 1,
+                      "K3": T * S},
+            "per-env": {"K1": 0, "K1-hfield": 0, "K2": 0, "K3": 0,
+                        "K3-bf": T * S}}
+    for mode, w in want.items():
+        check_counts(f"tools megakernel_divergence {mode}", launches[mode], w)
+    out = res["results"]
+    if set(res) != {"ckpt", "envs", "steps", "results",
+                    "return_rel_delta_vs_megakernel"} or any(
+            not np.isfinite(r["return"]) or r["episodes"] != TOOL_ENVS
+            for r in out.values()):
+        raise AssertionError(f"tools megakernel_divergence: {res}")
+    deltas = res["return_rel_delta_vs_megakernel"]
+    if not all(d <= EVAL_BOUND for d in deltas.values()):
+        raise AssertionError(f"tools megakernel_divergence: tiers {deltas} "
+                             f"apart, beyond {EVAL_BOUND}")
+    return dict(seconds=f"{secs:.1f}", deltas=deltas,
+                returns={m: r["return"] for m, r in out.items()},
+                launches={m: {k: v for k, v in n.items() if v}
+                          for m, n in launches.items()})
+
+
+def tool_estimator():
+    """torch_estimator_divergence.py on mk4_hardened, TOOL_ENVS episodes x
+    TOOL_STEPS steps, its five rows on the megakernel tier: K1 every
+    substep, K2 at each row's reset and once a step; the rows "exact" and
+    "firmware tau=12ms" one configuration, one return (limit (k))."""
+    (rows, raw), secs, n, _ = run_tool(
+        "torch_estimator_divergence", [CKPT, "--episodes", str(TOOL_ENVS),
+                                       "--steps", str(TOOL_STEPS)])
+    R = len(rows)
+    check_counts("tools estimator_divergence", n, {
+        "K1": R * TOOL_STEPS * SIMRATE, "K1-hfield": 0,
+        "K2": R * (TOOL_STEPS + 1), "K3": 0})
+    if R != 5 or not np.isfinite(raw).all() or raw[0] != raw[1]:
+        raise AssertionError(f"tools estimator_divergence: rows {rows}")
+    return dict(seconds=f"{secs:.1f}", returns=[f"{r:.4f}" for r in raw])
+
+
+def tool_mirror():
+    """torch_mirror_policy_check.py on mk4_hardened, TOOL_STEPS steps of 16
+    envs: the evaluation's launches (K1 every substep, K2 twice a step and
+    at the reset), a finite distance per state."""
+    err, secs, n, lines = run_tool("torch_mirror_policy_check",
+                                   [CKPT, "--steps", str(TOOL_STEPS)])
+    check_counts("tools mirror_policy_check", n, {
+        "K1": TOOL_STEPS * SIMRATE, "K1-hfield": 0, "K2": 2 * TOOL_STEPS + 1,
+        "K3": 0})
+    if err.shape != (16 * TOOL_STEPS,) or not np.isfinite(err).all() or \
+            not lines[-1].startswith(f"mirror consistency over {err.size}"):
+        raise AssertionError(f"tools mirror_policy_check: {err}, {lines}")
+    return dict(seconds=f"{secs:.1f}", mean=f"{err.mean():.4f}",
+                max=f"{err.max():.4f}")
+
+
+def tool_vis(d: str):
+    """torch_vis_perturb.py (its defaults: 4 angles, phase 0, 208 steps) and
+    torch_vis_input_and_state.py (TOOL_RECORD_STEPS steps) on mk4_hardened:
+    launches as the jobs' (`job_counts`), the npz files in the JAX tools'
+    keys and shapes, finite."""
+    out = {}
+    res, secs, n, lines = run_tool("torch_vis_perturb", [
+        CKPT, "--out", os.path.join(d, "vis_perturb.png")])
+    total = res["pelvis"].shape[2]
+    check_counts("tools vis_perturb", n, job_counts(total))
+    shapes = finite_npz(os.path.join(d, "vis_perturb.npz"), {
+        "angles", "phases", "force", "pelvis", "fallen_seq", "survived",
+        "push_window"}, "tools vis_perturb")
+    if shapes["pelvis"] != (4, 1, total, 7) or total != 208:
+        raise AssertionError(f"tools vis_perturb: shapes {shapes}")
+    out["vis_perturb"] = dict(seconds=f"{secs:.1f}", plot=plotted(
+        lines, "vis_perturb"), survived=int(res["survived"].sum()))
+    T = TOOL_RECORD_STEPS
+    rec, secs, n, lines = run_tool("torch_vis_input_and_state", [
+        CKPT, "--steps", str(T), "--out", os.path.join(d, "vis_state.png")])
+    check_counts("tools vis_input_and_state", n, job_counts(T))
+    shapes = finite_npz(os.path.join(d, "vis_state.npz"), {
+        "qpos", "reward", "fallen", "est_lfoot", "est_rfoot", "true_lfoot",
+        "true_rfoot", "est_lfoot_err", "est_rfoot_err"},
+        "tools vis_input_and_state")
+    if shapes["qpos"] != (T, 35):
+        raise AssertionError(f"tools vis_input_and_state: shapes {shapes}")
+    out["vis_input_and_state"] = dict(seconds=f"{secs:.1f}", plot=plotted(
+        lines, "vis_input_and_state"))
+    return out
+
+
+def tool_aslip(d: str):
+    """torch_aslip_tests.py on an aslip run of one `ppo` iteration of
+    CassieTraj-v0 (`--traj aslip`, counted as train_new_envs counts): grf
+    (one cycle after three, on the run as the JAX tool loads it: the
+    walking gait library, 33-step cycles), and footplace and taskspace
+    with --keep-traj (gait ASLIP_IDX, 32-step cycles; without it they stop
+    at "requires an aslip run" as in JAX, limit (l)); each counted as the
+    jobs' rollouts (`job_counts`, three, two and one envs)."""
+    out = {}
+
+    def subcommands(run_dir):
+        prof, secs, n, lines = run_tool("torch_aslip_tests", [
+            "grf", run_dir, "--cycles", "1", "--out",
+            os.path.join(d, "grf.png")])
+        check_counts("tools aslip grf", n, job_counts(4 * 33))
+        shapes = finite_npz(os.path.join(d, "grf.npz"), {
+            "mean", "std", "cycles_used", "cycle_steps"}, "tools aslip grf")
+        if shapes["mean"] != (33 * SIMRATE, 2):
+            raise AssertionError(f"tools aslip grf: shapes {shapes}")
+        out["grf"] = dict(seconds=f"{secs:.1f}", plot=plotted(lines, "grf"),
+                          cycles_used=int(prof["cycles_used"]))
+        try:
+            run_tool("torch_aslip_tests", ["footplace", run_dir])
+        except AssertionError as e:
+            if "requires an aslip run" not in str(e):
+                raise
+        else:
+            raise AssertionError("tools aslip footplace ran on the walking "
+                                 "gait library")
+        rows, secs, n, _ = run_tool("torch_aslip_tests", [
+            "footplace", run_dir, "--keep-traj", "--traj-idx",
+            str(ASLIP_IDX), "--steps", "1", "--trials", "2"])
+        check_counts("tools aslip footplace", n, job_counts(5 * 32))
+        out["footplace"] = dict(seconds=f"{secs:.1f}",
+                                footsteps=rows[0]["n_footsteps"])
+        rows, secs, n, _ = run_tool("torch_aslip_tests", [
+            "taskspace", run_dir, "--keep-traj", "--speeds", str(ASLIP_IDX),
+            "--out", os.path.join(d, "taskspace.npz")])
+        check_counts("tools aslip taskspace", n, job_counts(8 * 32))
+        with np.load(os.path.join(d, "taskspace.npz")) as f:
+            if f.files != ["rows"] or f["rows"].shape != (1, 4):
+                raise AssertionError(f"tools aslip taskspace: {dict(f)}")
+        out["taskspace"] = dict(seconds=f"{secs:.1f}",
+                                survived=rows[0]["survived"])
+
+    steps = ASLIP_PPO_STEPS
+    run_cli(ASLIP_PPO, "CassieTraj-v0", {
+        "K1": SIMRATE * steps, "K1-hfield": 0, "K2": 2 * steps + 3,
+        "K3": 0}, then=subcommands)
+    return out
+
+
+def tool_mission(d: str):
+    """torch_make_mission.py into `d`, read back through the port's mission
+    loader (`envs/trajectory.CommandTrajectory`) as its build_mission
+    made it."""
+    from apex_tpu_torch.envs import trajectory
+
+    waypoints = "0,0 5,0 5,5 10,5"
+    path, secs, _, _ = run_tool("torch_make_mission", [
+        "--name", "smoke", "--speed", "1.4", "--waypoints", waypoints,
+        "--out", d], counted=False)
+    pts = np.array([[float(v) for v in w.split(",")]
+                    for w in waypoints.split()])
+    want = load_script("torch_make_mission").build_mission(pts, 1.4)
+    own = trajectory.DATA_DIR
+    trajectory.DATA_DIR = pathlib.Path(d)
+    try:
+        got = trajectory.CommandTrajectory("smoke")
+    finally:
+        trajectory.DATA_DIR = own
+    if not all(np.array_equal(a, b) for a, b in zip(
+            (got.global_pos, got.speed_cmd, got.orient), want)):
+        raise AssertionError("tools make_mission: the loader read other "
+                             "values than build_mission's")
+    return dict(steps=got.trajlen, path=os.path.basename(path))
+
+
+def tool_plots(d: str):
+    """torch_plot_policy.py on a record of `evaluate.record_policy` and a
+    fleet dump of `eval_checkpoint(out=...)` (eval --out), and
+    torch_render_gait.py on `evaluate.dump_gait`'s qpos (eval --gait):
+    its frames' body origins from one K2 launch, finite."""
+    from apex_tpu_torch.runtime import evaluate
+
+    rec, dump, gait = (os.path.join(d, f) for f in (
+        "record.npz", "traj.npz", "gait.npz"))
+    evaluate.record_policy(CKPT, out=rec, n_steps=10, device="cuda")
+    eval_checkpoint(CKPT, n_episodes=TOOL_ENVS, traj_len=TOOL_STEPS,
+                    device="cuda", out=dump)
+    evaluate.dump_gait(CKPT, out=gait, n_steps=10, device="cuda")
+    out = {}
+    for name, src in (("record", rec), ("dump", dump)):
+        _, _, _, lines = run_tool("torch_plot_policy", [
+            src, "--out", os.path.join(d, f"{name}.png")], counted=False)
+        out[f"plot_policy_{name}"] = plotted(lines, f"plot_policy {name}")
+    (idx, xpos), secs, n, lines = run_tool("torch_render_gait", [
+        gait, "--out", os.path.join(d, "gait.png")])
+    check_counts("tools render_gait", n, {"K1": 0, "K1-hfield": 0, "K2": 1,
+                                          "K3": 0})
+    if xpos.shape != (8, 25, 3) or not np.isfinite(xpos).all():
+        raise AssertionError(f"tools render_gait: {xpos.shape}")
+    out["render_gait"] = dict(plot=plotted(lines, "render_gait"),
+                              k2_launches=n["K2"])
+    return out
+
+
+def check_tools():
+    """The nine `scripts/torch_<tool>.py` front ends in-process on the card
+    at a small size, each counted exactly and its output checked in the
+    JAX tool's keys and shapes."""
+    out = {}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as d:
+        for name, fn in (("megakernel_divergence", tool_divergence),
+                         ("estimator_divergence", tool_estimator),
+                         ("mirror_policy_check", tool_mirror),
+                         ("vis", lambda: tool_vis(d)),
+                         ("aslip_tests", lambda: tool_aslip(d)),
+                         ("make_mission", lambda: tool_mission(d)),
+                         ("plots", lambda: tool_plots(d))):
+            out[name] = fn()
+            print(f"  tools {name}: {out[name]}", flush=True)
+    return out
+
+
 def check_k2(gen, dev, build_log: str):
     """K2 against its plain version on a perturbed dyn-rand fleet, and on
     `fk_tree_model`'s tree."""
@@ -1436,17 +1735,17 @@ def run_eval(physics, traj_len, seed, ckpt=CKPT):
 
 def eval_seeds(name, ckpt, simrate, hfield):
     """The 64-env, 300-step megakernel-tier evaluation of `ckpt` for each
-    seed of EVAL_SEEDS, counted: K1 once per substep (each a heightfield
-    launch on terrain), K2 once per step for the pre-step foot positions,
-    once per step for the auto-reset fleet and once for the initial reset,
-    K3 never. The returns must be bit for bit those of earlier runs
-    (EARLIER_RETURNS). Returns the first seed's counts and a printable
-    summary."""
+    seed of its EARLIER_RETURNS, counted: K1 once per substep (each a
+    heightfield launch on terrain), K2 once per step for the pre-step foot
+    positions, once per step for the auto-reset fleet and once for the
+    initial reset, K3 never. The returns must be bit for bit those of
+    earlier runs (EARLIER_RETURNS). Returns the first seed's counts and a
+    printable summary."""
     want = {"K1": TRAJ_LEN * simrate,
             "K1-hfield": TRAJ_LEN * simrate if hfield else 0,
             "K2": TRAJ_LEN * 2 + 1, "K3": 0}
     rets, lens, ms, first = [], [], [], None
-    for seed in EVAL_SEEDS:
+    for seed in EARLIER_RETURNS[name]:
         ep_ret, ep_len, secs, n = run_eval("megakernel", TRAJ_LEN, seed,
                                            ckpt)
         check_counts(f"{name} seed {seed}", n, want)
@@ -1603,12 +1902,54 @@ def jax_draws(path: str):
                                                              own_step)
 
 
+def file_draws(path: str, env):
+    """The `draws` function of `runtime/analysis.py`'s jobs, and of
+    `scripts/torch_estimator_divergence.py`'s evaluation, on JAX's draws (a
+    file of `scripts/export_tool_draws.py`): a call (seed, n_trials,
+    n_steps) that the file holds takes every field the file gives from it
+    (JAX's key splits of PRNGKey(seed) for that call); the fields it lacks
+    stay the env's own samplers' on a torch.Generator seeded with `seed`.
+    A call the file does not hold raises."""
+    from apex_tpu_torch.runtime.analysis import generator_draws
+
+    with np.load(path) as f:
+        d = {k: f[k] for k in f}
+    calls = {tuple(int(x) for x in v): k[:-len("call")]
+             for k, v in d.items() if k.endswith("_call")}
+    own = generator_draws(env)
+
+    def put(noise, arrays):
+        new = {}
+        for name in noise._fields:
+            x = getattr(noise, name)
+            if name in arrays and x is not None:
+                new[name] = torch.as_tensor(
+                    np.moveaxis(arrays[name], 0, -1), dtype=x.dtype,
+                    device=x.device).contiguous()
+        return noise._replace(**new)
+
+    def draws(seed, n_trials, n_steps):
+        call = (int(seed), int(n_trials), int(n_steps))
+        if call not in calls:
+            raise KeyError(f"{path} holds no draws for (seed, trials, steps)"
+                           f" = {call}, only for {sorted(calls)}")
+        pre = calls[call]
+        part = lambda kind: {k[len(pre + kind):]: v for k, v in d.items()
+                             if k.startswith(pre + kind)}
+        reset, steps = own(*call)
+        st = part("step_")
+        return put(reset, part("reset_")), [
+            put(s, {k: v[t] for k, v in st.items()})
+            for t, s in enumerate(steps)]
+    return draws
+
+
 def eval_switch_ckpts():
     """The 64-env, 300-step megakernel-tier evaluation of each checkpoint
     the CassieEnv switches unlock (SWITCH_CKPTS), counted as `eval_seeds`
     counts (CassieTraj-v0's step reads the pre-step foot positions through
-    K2 too): at seed 42 on the port's own draws, printed, and on the draws
-    of JAX's seed-42 run (`jax_draws`), held to JAX's seed-42 return within
+    K2 too): at seed 42 on the draws of JAX's seed-42 run (`jax_draws`),
+    held to JAX's seed-42 return within
     EVAL_BOUND, or within JAX's own seed spread (how far its seeds 0 and 1
     land from seed 42) where that is wider: over 300 steps the two stacks'
     rounding parts their trajectories (ROADMAP limit (a)), and a policy
@@ -1618,16 +1959,14 @@ def eval_switch_ckpts():
     for name, (ckpt, simrate, (jax_ret, *others)) in SWITCH_CKPTS.items():
         want = {"K1": TRAJ_LEN * simrate, "K1-hfield": 0,
                 "K2": TRAJ_LEN * 2 + 1, "K3": 0}
-        own, _, secs, n = run_eval("megakernel", TRAJ_LEN, 42, ckpt)
-        check_counts(f"eval_{name}", n, want)
         path = draws_file(ckpt)
         with np.load(path) as f:
             if abs(float(f["jax_return"]) - jax_ret) > 1e-3:
                 raise AssertionError(f"{path} holds another run than JAX's "
                                      f"seed-42 {jax_ret}")
         with jax_draws(path):
-            ep_ret, ep_len, _, n = run_eval("megakernel", TRAJ_LEN, 42,
-                                            ckpt)
+            ep_ret, ep_len, secs, n = run_eval("megakernel", TRAJ_LEN, 42,
+                                               ckpt)
         check_counts(f"eval_{name} on JAX's draws", n, want)
         rel = (ep_ret - jax_ret) / jax_ret
         spread = max(abs(r - jax_ret) for r in others) / jax_ret
@@ -1635,9 +1974,8 @@ def eval_switch_ckpts():
         print(f"  eval_{name}: on JAX's seed-42 draws {ep_ret!r}, JAX "
               f"{jax_ret} ({100 * rel:+.2f} %, bound {100 * bound:.2f} %: "
               f"JAX's seeds 0 and 1 at {100 * spread:.2f} %), length "
-              f"{ep_len:.2f}; on the port's seed-42 draws {own:.4f} "
-              f"({100 * (own - jax_ret) / jax_ret:+.2f} %); "
-              f"{secs / TRAJ_LEN * 1e3:.2f} ms per policy step, K1 "
+              f"{ep_len:.2f}; {secs / TRAJ_LEN * 1e3:.2f} ms per policy "
+              f"step, K1 "
               f"{n['K1']}, K2 {n['K2']}", flush=True)
         if not abs(rel) <= bound:
             raise AssertionError(
@@ -1645,7 +1983,7 @@ def eval_switch_ckpts():
                 f"{100 * rel:+.2f} % from JAX's {jax_ret}, beyond "
                 f"{100 * bound:.2f} %")
         out[name] = (f"{ep_ret:.4f} vs JAX {jax_ret} ({100 * rel:+.2f} %, "
-                     f"bound {100 * bound:.2f} %), own draws {own:.4f}")
+                     f"bound {100 * bound:.2f} %)")
     return out
 
 
@@ -1722,9 +2060,10 @@ def profile_launches(fn):
     return busy_ms, len(on_card), launch_calls
 
 
-# the training run: the mk4_hardened settings (experiment.pkl), 2
-# iterations
-TRAIN_STEPS, TRAIN_ITR, TRAIN_NORM_STEPS = 32768, 2, 10000
+# the training run: the mk4_hardened settings (experiment.pkl), one
+# iteration of 8 steps per env (the learning-curve phase, `curves`, trains
+# at the curve tool's settings)
+TRAIN_STEPS, TRAIN_ITR, TRAIN_NORM_STEPS = 8192, 1, 10000
 
 
 def train_args(logdir: str):
@@ -1739,8 +2078,9 @@ def train_args(logdir: str):
 
 
 def train(dev):
-    """Two PPO iterations through the CLI, in-process, counted; then the
-    run directory loads back in the port's evaluation."""
+    """A PPO iteration through the CLI at the training fleet, in-process,
+    counted; then the run directory loads back in the port's
+    evaluation."""
     import glob
     import os
 
@@ -1786,8 +2126,10 @@ def train(dev):
 
 
 # scripts/torch_train_curve.py at the mk4_hardened settings: iterations,
-# eval cadence, and the burn-in's policy steps (10,000 // 1024)
-CURVE_ITR, CURVE_EVAL_EVERY, CURVE_NORM_STEPS = 3, 2, 10000 // FLEET
+# eval cadence, policy steps per env and iteration (its --steps-per-env),
+# and the burn-in's policy steps (10,000 // 1024)
+CURVE_ITR, CURVE_EVAL_EVERY, CURVE_STEPS, CURVE_NORM_STEPS = (
+    1, 1, 32, 10000 // FLEET)
 # the keys of tools/train_curve.py's npz (tests/test_torch_curves.py holds
 # the scripts' files to the tools' source)
 CURVE_NPZ_KEYS = {"iters", "wall_s", "env_steps", "train_return",
@@ -1811,8 +2153,8 @@ def load_script(name: str):
 def curves():
     """The learning-curve scripts in-process on the card, counted.
     `torch_train_curve.py cassie --dyn-random` (1024 envs, 32 steps each,
-    minibatch 2,048): K1 once per substep of the burn-in, of each
-    iteration's rollout and of each 300-step eval (at iterations 0 and 2);
+    minibatch 2,048), one iteration and its eval: K1 once per substep of the
+    burn-in, of the iteration's rollout and of the 300-step eval;
     K2 twice per policy step and once per fresh fleet (PPO.init, after the
     burn-in, each eval); K3 never. Its npz has the JAX tool's keys and
     finite returns, and its checkpoint loads back. Then on Walker2d (4 K2
@@ -1830,7 +2172,7 @@ def curves():
             lambda: load_script("torch_train_curve").main(argv))
         evals = len(range(0, CURVE_ITR, CURVE_EVAL_EVERY)) + (
             (CURVE_ITR - 1) % CURVE_EVAL_EVERY != 0)
-        steps = (CURVE_NORM_STEPS + CURVE_ITR * (TRAIN_STEPS // FLEET)
+        steps = (CURVE_NORM_STEPS + CURVE_ITR * CURVE_STEPS
                  + evals * TRAJ_LEN)
         check_counts("curves cassie", n, {
             "K1": SIMRATE * steps, "K1-hfield": 0, "K2": 2 * steps + 2 + evals,
@@ -2312,11 +2654,11 @@ RECURRENT_CKPT = "curves/recurrent_ppo_walker_seed0_ckpt"
 # JAX's seed-42 reset draws and returns (scripts/export_recurrent_draws.py)
 RECURRENT_DRAWS = "curves/jax_eval_draws/recurrent_ppo_walker.npz"
 RECURRENT_LEAVES = 80              # the JAX RecurrentPPOState of Walker2d
-RPPO_STEPS, RPPO_ITR, RPPO_NORM_STEPS = 256 * 32, 2, 10000
+RPPO_STEPS, RPPO_ITR, RPPO_NORM_STEPS = 256 * 32, 1, 10000
 # Cassie-v0: 64 envs, chunks of 16 steps, a 100-step evaluation
 RPPO_CASSIE_ENVS, RPPO_CASSIE_T, RPPO_CASSIE_NORM, RPPO_CASSIE_TRAJ = (
     64, 16, 8, 100)
-RDPG_UPDATES = 8                   # of the CLI's 80 (rdpg_updates)
+RDPG_UPDATES = 4                   # of the CLI's 80 (rdpg_updates)
 
 
 def recurrent_ppo_walker(dev):
@@ -2324,12 +2666,12 @@ def recurrent_ppo_walker(dev):
     into the port and evaluated as `RecurrentPPO._evaluate` does (a fresh
     fleet, 400 steps without resets, the first episode's return): on the
     reset draws of JAX's seed-42 evaluation, held within EVAL_BOUND of
-    JAX's return, and on the port's own seed-42 draws; each counted (a
-    reset launches nothing, a step 4 K2 and 4 K3). Then two iterations of
-    `python -m apex_tpu_torch ppo --env_name Walker2d --recurrent
-    --num_procs 256 --num_steps 8192` (the 39-step burn-in, per iteration
-    a 32-step chunk, the BPTT update and the 400-step evaluation),
-    counted; its run dir loads back into the port's RecurrentPPOState."""
+    JAX's return, counted (a reset launches nothing, a step 4 K2 and 4
+    K3). Then one iteration of `python -m apex_tpu_torch ppo --env_name
+    Walker2d --recurrent --num_procs 256 --num_steps 8192` (the 39-step
+    burn-in, a 32-step chunk, the BPTT update and the 400-step
+    evaluation), counted; its run dir loads back into the port's
+    RecurrentPPOState."""
     from apex_tpu_torch.agents.ppo_recurrent import RecurrentPPO
     from apex_tpu_torch.envs.walker2d import WalkerResetNoise
     from apex_tpu_torch.runtime.checkpoint import (load_recurrent_ppo,
@@ -2361,11 +2703,6 @@ def recurrent_ppo_walker(dev):
     if not abs(rel) <= EVAL_BOUND:
         raise AssertionError(f"recurrent_ppo_walker: return {ret} is "
                              f"{rel:+.4%} from JAX's {jax_ret}")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(42)
-    own_ev, _, n_own = count_launches(lambda: agent._evaluate(state, gen))
-    check_counts("recurrent_ppo_walker eval (own draws)", n_own, want)
-
     steps = RPPO_NORM_STEPS // B + RPPO_ITR * (RPPO_STEPS // B + T)
     cli_want = {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * steps,
                 "K3": WALKER_SUBSTEPS * steps}
@@ -2389,7 +2726,6 @@ def recurrent_ppo_walker(dev):
     return dict(
         jax_draws_return=f"{ret:.4f}", jax_return=f"{jax_ret:.4f}",
         diff=f"{rel:+.4%}", ep_len=f"{float(ev['ep_len']):.2f}",
-        own_draws_return=f"{float(own_ev['ep_return']):.4f}",
         eval_ms_per_policy_step=f"{secs / T * 1e3:.2f}",
         eval_k2_launches=n["K2"], eval_k3_launches=n["K3"],
         cli_seconds=f"{cli_s:.1f}", cli_policy_steps=steps,
@@ -3122,6 +3458,11 @@ def main() -> int:
     build_log = so.with_suffix(".log").read_text().strip()
     print(build_log, flush=True)
     phase("build", t0, library=so.name, build_seconds=f"{build_s:.2f}")
+    # the analysis and profiling tools first: torch.profiler drops more of
+    # a window's first kernels the longer the process has run, and this
+    # phase's trace must hold every K1 launch of a policy step
+    t0 = time.time()
+    phase("analysis", t0, **check_analysis(dev))
 
     gen = torch.Generator()
     gen.manual_seed(0)
@@ -3202,7 +3543,7 @@ def main() -> int:
     per_env_n, per_env = check_per_env(dev, fleet_ret)
     phase("per_env", t0, **per_env)
     t0 = time.time()
-    phase("analysis", t0, **check_analysis(dev))
+    phase("tools", t0, **check_tools())
 
     # the checkpoints the CassieEnv switches unlock, and CassieTraj-v0
     t0 = time.time()
