@@ -52,27 +52,42 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def count_launches(fn):
-    """Run fn() on the card with every CUDA kernel's launch count at 0
-    just before; returns (fn's result, seconds, {kernel: launches just
-    after}): K1 (with its heightfield launches apart as "K1-hfield", and
-    its launches on a rank's shard of a partitioned fleet apart as
-    "K1-part"), K2, K3 and K3's batch-first route "K3-bf"."""
+def _launch_counters():
     from apex_tpu_torch.ops import pallas_linalg
     from apex_tpu_torch.physics import fleet_fk, fleet_kernel
 
-    wrappers = {"K1": fleet_kernel.pd_substep,
-                "K1-part": fleet_kernel.partitioned_pd_substep,
-                "K2": fleet_fk.fleet_fk,
-                "K3": pallas_linalg.spd_inverse_bt,
-                "K3-bf": pallas_linalg.spd_inverse_bf}
-    for w in wrappers.values():
+    return {"K1": fleet_kernel.pd_substep,
+            "K1-part": fleet_kernel.partitioned_pd_substep,
+            "K2": fleet_fk.fleet_fk,
+            "K3": pallas_linalg.spd_inverse_bt,
+            "K3-bf": pallas_linalg.spd_inverse_bf}
+
+
+def launch_counts() -> dict:
+    """Every CUDA kernel's launch count as its wrapper keeps it, read and
+    not reset (a caller may be counting a whole run around this one):
+    K1 (its heightfield launches apart as "K1-hfield", its launches on a
+    rank's shard apart as "K1-part"), K2, K3 and K3's batch-first route
+    "K3-bf". All stay 0 on the CPU, where the wrappers run the plain
+    versions."""
+    from apex_tpu_torch.physics import fleet_kernel
+
+    counts = {k: w.launches for k, w in _launch_counters().items()}
+    counts["K1-hfield"] = fleet_kernel.pd_substep.hfield_launches
+    return counts
+
+
+def count_launches(fn):
+    """Run fn() on the card with every CUDA kernel's launch count at 0
+    just before; returns (fn's result, seconds, `launch_counts()` just
+    after)."""
+    from apex_tpu_torch.physics import fleet_kernel
+
+    for w in _launch_counters().values():
         w.launches = 0
     fleet_kernel.pd_substep.hfield_launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     result = fn()
     torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
-    counts["K1-hfield"] = fleet_kernel.pd_substep.hfield_launches
-    return result, time.time() - t0, counts
+    return result, time.time() - t0, launch_counts()

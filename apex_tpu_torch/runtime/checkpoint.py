@@ -19,7 +19,8 @@ PPO, TD3, DDPG, RDPG and ARS train states (the JAX `PPOTrainState`,
 in their field order), so that a run directory of the port loads in the
 JAX package too; `load_recurrent_ppo` reads a JAX `RecurrentPPOState`
 back into the port's (its LSTM cells store (in, 4H) weights, the port's
-(4H, in), as nn.LSTMCell does).
+(4H, in), as nn.LSTMCell does), and `load_td3_actor` the acting net and
+normaliser of a TD3 train state.
 """
 from __future__ import annotations
 
@@ -329,3 +330,44 @@ def load_recurrent_ppo(path: str, agent, seed: int = 0,
     RecurrentPPO(...).init(0))`)."""
     return restore_recurrent_ppo(agent.init(seed), _read(path, name),
                                  agent.env)
+
+
+# a TD3TrainState's leaves: actor, actor_target and behavior (FFActor, 6
+# leaves each), critic and critic_target (DualQCritic, 12 each), then norm
+TD3_ACTOR_LEAVES, TD3_NORM_AT = 6, 3 * 6 + 2 * 12
+# the names of the actor's and the normaliser's leaves in an .npz
+TD3_NPZ_KEYS = tuple(f"actor_{i}" for i in range(TD3_ACTOR_LEAVES)) + (
+    "norm_mean", "norm_var", "norm_count")
+
+
+def td3_actor_leaves(path: str) -> list:
+    """The actor's 6 leaves, then the normaliser's mean, var and count, of
+    a TD3 run: a JAX `TD3TrainState` checkpoint (a run dir or a .pkl, the
+    JAX package's or the port's), or an .npz holding them under
+    TD3_NPZ_KEYS (`scripts/export_td3_draws.py` and `torch_eval_td3.py
+    --export` write such files)."""
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            return [f[k] for k in TD3_NPZ_KEYS]
+    leaves = _read(path)
+    return (list(leaves[:TD3_ACTOR_LEAVES])
+            + list(leaves[TD3_NORM_AT:TD3_NORM_AT + 3]))
+
+
+@torch.no_grad()
+def load_td3_actor(path: str, device=None, max_action: float = 1.0):
+    """(FFActor, NormState) of a TD3 run (`td3_actor_leaves`), on `device`:
+    what the deterministic evaluation (`TD3._evaluate`) reads."""
+    from apex_tpu_torch.models.nets import FFActor, NormState
+
+    leaves = [np.asarray(x) for x in td3_actor_leaves(path)]
+    w0, w1, w_out = leaves[1], leaves[3], leaves[5]
+    actor = FFActor(w0.shape[0], w_out.shape[1], (w0.shape[1], w1.shape[1]),
+                    max_action=max_action)
+    for (p, tr), x in zip(_jax_params(actor), leaves[:TD3_ACTOR_LEAVES]):
+        p.copy_(torch.tensor(x.T if tr else x))
+    norm = NormState(w0.shape[0])
+    for t, x in zip((norm.mean, norm.var, norm.count),
+                    leaves[TD3_ACTOR_LEAVES:]):
+        t.copy_(torch.tensor(x))
+    return actor.to(device).requires_grad_(False), norm.to(device)

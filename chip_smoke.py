@@ -131,7 +131,9 @@ its seconds as it ends:
              iteration at 1024 envs and its eval (the JAX tool's
              npz keys, finite returns, the checkpoint loading back), one
              `ars` and one `td3_sync` iteration of
-             `torch_train_offpolicy_curve.py` and one iteration of
+             `torch_train_offpolicy_curve.py`, two of `td3_async` (the
+             warm-up and one acting iteration, 100-step evals), and one
+             iteration of
              `torch_train_recurrent_curve.py walker`, on Walker2d
   walker_fleet
              Walker2d on the fleet tier at 2048 envs: K2 on its model and
@@ -201,6 +203,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -209,6 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -344,19 +348,27 @@ def device_ms(fn, iters: int, kernel: str = "", warmup: int = 2) -> float:
     launches of `kernel`, the same work each time, within a factor 2 of
     their median duration. A trace that holds fewer than half the
     launches or fails those checks is taken again, up to TRACE_ATTEMPTS
-    traces in all, and then the run fails. `TRACE` keeps the last
-    reading: its launches, names, durations and the events' time."""
-    from torch.profiler import ProfilerActivity, profile
+    traces in all, and then the run fails. Each trace records the calls
+    after a warm-up step of the same calls that the profiler traces and
+    drops (its schedule): a window loses its first kernels (F7). `TRACE`
+    keeps the last reading: its launches, names, durations and the
+    events' time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     ev_ms, queued = queued_ms(fn, iters)
     for attempt in range(TRACE_ATTEMPTS):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for step in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                if not step:
+                    prof.step()
         every = [e for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         on_card = [e for e in every if kernel in e.name]
@@ -1816,12 +1828,14 @@ def draws_file(ckpt: str, folder: str = "curves/jax_eval_draws") -> str:
 @contextlib.contextmanager
 def jax_draws(path: str):
     """The port's evaluation on the draws of JAX's (a file of
-    `scripts/export_eval_draws.py`): while it is open, the Cassie envs draw
+    `scripts/export_eval_draws.py`, or of `scripts/export_td3_draws.py`
+    for Walker2d): while it is open, the Cassie and Walker2d envs draw
     their own reset and step noise as always, and every value JAX's run
     used takes JAX's place: the first fleet reset's, each auto-reset's rows
     of the envs JAX reset at that step, and each step's command changes
-    (JAX's hit masks; its values where they hit). Draws JAX never used
-    (resets of envs that end at other steps than JAX's) stay the port's."""
+    (JAX's hit masks; its values where they hit; Walker2d's step draws
+    nothing). Draws JAX never used (resets of envs that end at other steps
+    than JAX's) stay the port's."""
     from apex_tpu_torch.envs.cassie_traj import CassieTrajEnv
 
     with np.load(path) as f:
@@ -1840,7 +1854,7 @@ def jax_draws(path: str):
             values[k] = full
     calls = {"reset": 0, "step": 0}
     saved = {cls: (cls.sample_reset_noise, cls.sample_step_noise)
-             for cls in (CassieEnv, CassieTrajEnv)}
+             for cls in (CassieEnv, CassieTrajEnv, Walker2dEnv)}
 
     def put(noise, name, rows, vals):
         x = getattr(noise, name)
@@ -1872,6 +1886,8 @@ def jax_draws(path: str):
             noise = own(self, generator, batch)
             t = calls["step"]
             calls["step"] += 1
+            if noise is None:
+                return noise
             dev = noise.orient_hit.device
             new = {h: torch.as_tensor(masks[h][t], device=dev)
                    for h in ("orient_hit", "speed_hit", "side_hit")
@@ -2137,6 +2153,9 @@ CURVE_NPZ_KEYS = {"iters", "wall_s", "env_steps", "train_return",
                   "steps_per_iter"}
 OFFPOLICY_NPZ_KEYS = {"iters", "wall_s", "env_steps", "eval_return", "algo",
                       "env", "seed"}
+# td3_async's episodes and evals cut to 100 steps (the eval is 400 at the
+# tool's default): its two iterations and two evals take ~10 s, not ~24
+CURVE_TD3_EVAL = 100
 
 
 def load_script(name: str):
@@ -2150,6 +2169,36 @@ def load_script(name: str):
     return mod
 
 
+def walker_curve(name: str, script: str, args, env_steps: int, keys: set,
+                 d: str) -> dict:
+    """One run of a curve script on Walker2d into `d`, counted: 4 K2 and 4
+    K3 per env step, none at a reset; its npz has the keys and finite eval
+    returns. td3_async runs with its episodes and evals cut to
+    CURVE_TD3_EVAL steps, and holds its two iterations' updates, ring and
+    eval points."""
+    cut = (mock.patch("apex_tpu_torch.agents.td3.TD3Config",
+                      functools.partial(TD3Config,
+                                        max_traj_len=CURVE_TD3_EVAL))
+           if name == "td3_async" else contextlib.nullcontext())
+    with cut:
+        state, secs, n = count_launches(
+            lambda: load_script(script).main([*args, "--out", d]))
+    per = WALKER_SUBSTEPS * env_steps
+    check_counts(f"curves {name}", n, {
+        "K1": 0, "K1-hfield": 0, "K2": per, "K3": per})
+    if name == "td3_async" and (
+            state.update_count, state.replay.size) != (160, 10240):
+        raise AssertionError(f"curves td3_async: {state.update_count} "
+                             f"updates, ring {state.replay.size}")
+    with np.load(os.path.join(d, f"{name}_walker_seed0.npz")) as f:
+        if set(f.files) != keys or \
+                not np.all(np.isfinite(f["eval_return"])) or (
+                    name == "td3_async" and list(f["iters"]) != [0, 1]):
+            raise AssertionError(f"curves {name}: {dict(f)}")
+        return dict(seconds=f"{secs:.1f}", k2_launches=per,
+                    eval_return=f"{f['eval_return'][-1]:.4f}")
+
+
 def curves():
     """The learning-curve scripts in-process on the card, counted.
     `torch_train_curve.py cassie --dyn-random` (1024 envs, 32 steps each,
@@ -2160,7 +2209,9 @@ def curves():
     finite returns, and its checkpoint loads back. Then on Walker2d (4 K2
     and 4 K3 per env step, none at a reset): `torch_train_offpolicy_curve.
     py ars` for one iteration (128 envs, 400 steps), `td3_sync` for one
-    (80 steps of 64 envs, the 400-step eval) and
+    (80 steps of 64 envs, the 400-step eval), `td3_async` for two (the
+    random warm-up and one acting iteration, each with a 100-step eval)
+    and
     `torch_train_recurrent_curve.py walker` for one (the 39-step burn-in,
     a 64-step chunk, the 300-step eval)."""
     out = {}
@@ -2200,22 +2251,17 @@ def curves():
                 "td3_sync": ("torch_train_offpolicy_curve",
                              ["td3_sync", "--timesteps", str(80 * 64)],
                              80 + 400, OFFPOLICY_NPZ_KEYS),
+                # the warm-up iteration and one acting one, each with its
+                # eval (iterations 0 and the last) of CURVE_TD3_EVAL steps
+                "td3_async": ("torch_train_offpolicy_curve",
+                              ["td3_async", "--timesteps", str(2 * 80 * 64)],
+                              2 * (80 + CURVE_TD3_EVAL), OFFPOLICY_NPZ_KEYS),
                 "recurrent_ppo": ("torch_train_recurrent_curve",
                                   ["walker", "--n-itr", "1"],
                                   10000 // 256 + 64 + TRAJ_LEN,
                                   OFFPOLICY_NPZ_KEYS | {"train_return"})}
-        for name, (script, args, env_steps, keys) in runs.items():
-            _, secs, n = count_launches(lambda: load_script(script).main(
-                [*args, "--out", d]))
-            per = WALKER_SUBSTEPS * env_steps
-            check_counts(f"curves {name}", n, {
-                "K1": 0, "K1-hfield": 0, "K2": per, "K3": per})
-            with np.load(os.path.join(d, f"{name}_walker_seed0.npz")) as f:
-                if set(f.files) != keys or \
-                        not np.all(np.isfinite(f["eval_return"])):
-                    raise AssertionError(f"curves {name}: {dict(f)}")
-                out[name] = dict(seconds=f"{secs:.1f}", k2_launches=per,
-                                 eval_return=f"{f['eval_return'][-1]:.4f}")
+        for name, run in runs.items():
+            out[name] = walker_curve(name, *run, d)
             print(f"  curves {name}: {out[name]}", flush=True)
     return out
 

@@ -50,7 +50,16 @@ def _loader():
 
 def reset_draws(env, keys):
     """JAX's reset draws per key, as the port's ResetNoise (or
-    TrajResetNoise) fields, batch-first numpy."""
+    TrajResetNoise, or WalkerResetNoise) fields, batch-first numpy."""
+    if type(env).__name__ == "Walker2dEnv":       # walker2d.py:63-70
+        def walker(rng):
+            k1, k2 = jax.random.split(rng)
+            return dict(
+                qpos=jax.random.uniform(k1, (env.model.nq,), minval=-1.0,
+                                        maxval=1.0),
+                qvel=jax.random.uniform(k2, (env.model.nv,), minval=-1.0,
+                                        maxval=1.0))
+        return {k: np.asarray(v) for k, v in jax.vmap(walker)(keys).items()}
     traj = type(env).__name__ == "CassieTrajEnv"
 
     def one(rng):
@@ -82,7 +91,10 @@ def reset_draws(env, keys):
 
 
 def step_draws(env, keys):
-    """JAX's command-change draws per key: (hit masks, values)."""
+    """JAX's command-change draws per key: (hit masks, values); none on
+    Walker2d, whose step draws nothing."""
+    if type(env).__name__ == "Walker2dEnv":
+        return {}
     traj = type(env).__name__ == "CassieTrajEnv"
 
     def one(rng):

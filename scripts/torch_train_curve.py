@@ -36,7 +36,8 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from apex_tpu_torch.device import card_line, resolve_device  # noqa: E402
+from apex_tpu_torch.device import (card_line, launch_counts,  # noqa: E402
+                                   resolve_device)
 
 
 def parse_args(argv=None):
@@ -136,18 +137,6 @@ def resume(state, path: str, lr: float):
     for opt in (state.actor_opt, state.critic_opt):
         set_lr(opt, lr)
     return state
-
-
-def launch_counts() -> dict:
-    """The kernels' launch counters as their wrappers keep them (read, not
-    reset: a caller may be counting the whole run, as chip_smoke.py's
-    curves phase does)."""
-    from apex_tpu_torch.ops import pallas_linalg
-    from apex_tpu_torch.physics import fleet_fk, fleet_kernel
-
-    return {"K1": fleet_kernel.pd_substep.launches,
-            "K2": fleet_fk.fleet_fk.launches,
-            "K3": pallas_linalg.spd_inverse_bt.launches}
 
 
 def main(argv=None):

@@ -16,7 +16,10 @@ on Walker2d (`walker`) or CassieStanding-v0 (`cassie_standing`). The
 iterations, the random warm-up and the eval cadence are the JAX tool's;
 each eval's generator is seeded by the iteration. Writes <name>.npz into
 --out (default curves/) with the JAX tool's keys (rewritten at every eval
-point) and prints its JSON summary plus "card".
+point) and prints, on its last line, the JAX tool's JSON summary plus
+"card" (the card's name and power limit), and on the line before it the
+seconds per iteration with and without the eval, the kernels' launches
+in all and per iteration, and the peak device memory.
 
 Usage: python scripts/torch_train_offpolicy_curve.py
            {td3_async,td3_sync,ars,ddpg,rdpg} [--env walker]
@@ -35,7 +38,8 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from apex_tpu_torch.device import card_line, resolve_device  # noqa: E402
+from apex_tpu_torch.device import (card_line, launch_counts,  # noqa: E402
+                                   resolve_device)
 
 
 def make_env(which: str, device):
@@ -83,6 +87,9 @@ def main(argv=None):
     path = out / f"{name}.npz"
 
     iters, walls, rets, steps_l = [], [], [], []
+    train_s, eval_s = [], []
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
 
     def record(it, ret, total):
         """One eval point: kept and the npz rewritten; returns the head
@@ -97,6 +104,19 @@ def main(argv=None):
         return (f"{it:5d} | wall {walls[-1]:7.1f}s | "
                 f"steps {total / 1e6:6.2f}M")
 
+    def timed(fn, into):
+        """fn()'s result, its seconds (the card's work included) kept in
+        `into`."""
+        t = time.time()
+        out = fn()
+        sync()
+        into.append(time.time() - t)
+        return out
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    sync()
+    launches0 = launch_counts()
     t0 = time.time()
     if args.algo == "ars":
         from apex_tpu_torch.agents.ars import ARS, ARSConfig
@@ -104,7 +124,7 @@ def main(argv=None):
         ars = ARS(env, ARSConfig(algo="v2"))
         state = ars.init(seed=args.seed)
         for it in range(args.n_itr):
-            state, metrics = ars._iteration(state)
+            state, metrics = timed(lambda: ars._iteration(state), train_s)
             if it % args.eval_every == 0 or it == args.n_itr - 1:
                 head = record(it, float(metrics["mean_return"]),
                               int(state.total_steps))
@@ -124,10 +144,12 @@ def main(argv=None):
         warmup = max(1, cfg.start_timesteps // steps_per_iter)
         total = 0
         for it in range(n_iters):
-            state, metrics = dpg._train_iteration(state, it < warmup)
+            state, metrics = timed(
+                lambda: dpg._train_iteration(state, it < warmup), train_s)
             total += steps_per_iter
             if it % args.eval_every == 0 or it == n_iters - 1:
-                ev = dpg._evaluate(state, eval_generator(device, 5, it))
+                ev = timed(lambda: dpg._evaluate(
+                    state, eval_generator(device, 5, it)), eval_s)
                 head = record(it, float(ev["ep_return"]), total)
                 print(f"it {head} | eval {rets[-1]:8.2f} | "
                       f"closs {float(metrics['critic_loss']):8.4f}",
@@ -149,10 +171,12 @@ def main(argv=None):
         for it in range(n_iters):
             if not cfg.async_mode or it % cfg.load_freq == 0:
                 copy_params(state.behavior, state.actor)
-            state, metrics = td3._train_iteration(state, it < warmup)
+            state, metrics = timed(
+                lambda: td3._train_iteration(state, it < warmup), train_s)
             total += steps_per_iter
             if it % args.eval_every == 0 or it == n_iters - 1:
-                ev = td3._evaluate(state, eval_generator(device, 7, it))
+                ev = timed(lambda: td3._evaluate(
+                    state, eval_generator(device, 7, it)), eval_s)
                 head = record(it, float(ev["ep_return"]), total)
                 print(f"it {head} | eval {rets[-1]:8.2f} | "
                       f"closs {float(metrics['critic_loss']):8.4f}",
@@ -161,6 +185,19 @@ def main(argv=None):
                     best = rets[-1]
                     save_checkpoint(str(ckpt_dir), state, env)
 
+    sync()
+    n_itr = len(train_s)
+    launches = {k: v - launches0[k] for k, v in launch_counts().items()}
+    print(json.dumps({
+        "timing": {"s_per_itr_train": float(np.mean(train_s)),
+                   "s_per_eval": (float(np.mean(eval_s)) if eval_s
+                                  else None),
+                   "s_per_itr": (time.time() - t0) / n_itr,
+                   "n_itr": n_itr, "n_evals": len(eval_s)},
+        "launches": launches,
+        "launches_per_itr": {k: v / n_itr for k, v in launches.items()},
+        "peak_mb": (torch.cuda.max_memory_allocated(device) / 2**20
+                    if cuda else None)}))
     print(json.dumps({
         "algo": args.algo, "env": env_name, "seed": args.seed,
         "wall_s": round(walls[-1], 1), "total_env_steps": steps_l[-1],

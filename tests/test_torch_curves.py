@@ -245,33 +245,132 @@ def _run(name, argv, capsys):
     return state, _last_json(capsys.readouterr().out)
 
 
-@pytest.mark.parametrize("algo", ["ars", "td3_sync"])
+def jax_tool_schedule(algo, argv, tmp_path, monkeypatch, **cfg):
+    """tools/train_offpolicy_curve.py itself, run with `argv` and its TD3
+    configured by `cfg`, writing into tmp_path/curves, with JAX's TD3
+    iteration and eval replaced by recorders (no training): the order of
+    its acting-snapshot refreshes ("refresh", `_tree_copy` of the actor)
+    and iterations (("train", random_actions)), and its npz."""
+    import sys
+
+    from apex_tpu.agents import td3 as jax_td3
+    from apex_tpu.models.nets import FFActor as JaxFFActor
+
+    events = []
+    copy = jax_td3._tree_copy
+
+    def tree_copy(x):
+        if isinstance(x, JaxFFActor):
+            events.append("refresh")
+        return copy(x)
+
+    def train_iter(state, random_actions):
+        events.append(("train", bool(random_actions)))
+        return state, {"critic_loss": 0.0}
+
+    post_init = jax_td3.TD3.__post_init__
+
+    def recording(self):
+        post_init(self)
+        self._train_iter = train_iter
+        self._eval_iter = lambda state, key: {"ep_return": 0.0}
+
+    monkeypatch.setattr(jax_td3, "_tree_copy", tree_copy)
+    monkeypatch.setattr(jax_td3.TD3, "__post_init__", recording)
+    monkeypatch.setattr(jax_td3, "TD3Config", functools.partial(
+        jax_td3.TD3Config, **cfg))
+    monkeypatch.setattr(sys, "argv", ["train_offpolicy_curve.py", algo,
+                                      *argv])
+    spec = importlib.util.spec_from_file_location(
+        "jax_train_offpolicy_curve", ROOT / "tools" /
+        "train_offpolicy_curve.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tmp_path.mkdir(exist_ok=True)
+    tool.__file__ = str(tmp_path / "tools" / "train_offpolicy_curve.py")
+    tool.main()
+    with np.load(tmp_path / "curves" / f"{algo}_walker_seed0.npz") as f:
+        return events, {k: f[k] for k in f.files}
+
+
+def port_schedule(monkeypatch):
+    """Records the port script's acting-snapshot refreshes and its TD3
+    iterations, as `jax_tool_schedule` records the JAX tool's."""
+    events = []
+    copy, train = td3_mod.copy_params, td3_mod.TD3._train_iteration
+
+    def copy_params(target, source):
+        events.append("refresh")
+        return copy(target, source)
+
+    def train_iteration(self, state, random_actions):
+        events.append(("train", bool(random_actions)))
+        return train(self, state, random_actions)
+
+    monkeypatch.setattr(td3_mod, "copy_params", copy_params)
+    monkeypatch.setattr(td3_mod.TD3, "_train_iteration", train_iteration)
+    return events
+
+
+# the off-policy runs: (iterations, TD3Config changes, extra argv). The
+# async run has a one-iteration warm-up and refreshes its acting snapshot
+# every 2nd iteration, so that the schedule shows both switches.
+OFFPOLICY_RUNS = {
+    "ars": (2, {}, ["--n-itr", "2"]),
+    "td3_sync": (2, {}, ["--num-envs", "2", "--timesteps", "320"]),
+    "td3_async": (3, dict(start_timesteps=160, load_freq=2),
+                  ["--num-envs", "2", "--timesteps", "480"]),
+}
+
+
+@pytest.mark.parametrize("algo", sorted(OFFPOLICY_RUNS))
 def test_offpolicy_curve_writes_the_jax_tools_files(algo, tmp_path, capsys,
                                                     monkeypatch):
-    """ARS for 2 iterations, and td3_sync over 320 steps (2 warm-up
-    iterations of 2 envs x 80 steps, 80 updates each), on Walker2d, with
-    short episodes, few ARS directions and a small replay ring."""
+    """ARS for 2 iterations, td3_sync over 320 steps (2 warm-up
+    iterations of 2 envs x 80 steps, 80 updates each) and td3_async over
+    480 (a warm-up iteration, then two acting ones, the snapshot refreshed
+    every 2nd), on Walker2d, with short episodes, few ARS directions and a
+    small replay ring. For TD3 the JAX tool runs with the same arguments
+    and configuration (its iterations and evals recorded, not run): the
+    port script refreshes its acting snapshot and switches from the
+    random warm-up at the same iterations, and its npz has the JAX tool's
+    iters and env_steps."""
+    n_itr, td3_cfg, extra = OFFPOLICY_RUNS[algo]
+    td3_cfg = dict(td3_cfg, max_traj_len=20, replay_size=4096)
     monkeypatch.setattr(ars_mod, "ARSConfig", functools.partial(
         ars_mod.ARSConfig, max_traj_len=20, deltas=8, deltas_used=4))
     monkeypatch.setattr(td3_mod, "TD3Config", functools.partial(
-        td3_mod.TD3Config, max_traj_len=20, replay_size=4096))
-    argv = [algo, "--device", "cpu", "--out", str(tmp_path),
-            "--eval-every", "1"]
-    argv += (["--n-itr", "2"] if algo == "ars"
-             else ["--num-envs", "2", "--timesteps", "320"])
-    _, summary = _run("torch_train_offpolicy_curve", argv, capsys)
+        td3_mod.TD3Config, **td3_cfg))
+    argv = ["--eval-every", "1"] + extra
+    tds = algo.startswith("td3")
+    if tds:
+        want, jax_npz = jax_tool_schedule(algo, argv, tmp_path / "jax",
+                                          monkeypatch, **td3_cfg)
+        capsys.readouterr()
+        events = port_schedule(monkeypatch)
+    state, summary = _run("torch_train_offpolicy_curve",
+                          [algo, "--device", "cpu", "--out", str(tmp_path),
+                           *argv], capsys)
     keys = jax_tool_keys("train_offpolicy_curve")
     assert set(summary) == keys["summary"] | {"card"}
     with np.load(tmp_path / f"{algo}_walker_seed0.npz") as f:
         assert set(f.files) == keys["npz"]
-        np.testing.assert_array_equal(f["iters"], [0, 1])
+        np.testing.assert_array_equal(f["iters"], np.arange(n_itr))
         assert np.all(np.isfinite(f["eval_return"]))
         assert (str(f["algo"]), str(f["env"]), int(f["seed"])) == (
             algo, "Walker2d", 0)
-    if algo == "td3_sync":
-        assert summary["total_env_steps"] == 320
-        assert (tmp_path / "td3_sync_walker_seed0_ckpt"
+        if tds:
+            for k in ("iters", "env_steps"):
+                np.testing.assert_array_equal(f[k], jax_npz[k])
+    if tds:
+        assert events == want
+        assert summary["total_env_steps"] == 160 * n_itr
+        assert (tmp_path / f"{algo}_walker_seed0_ckpt"
                 / "checkpoint.pkl").is_file()
+    if algo == "td3_async":
+        assert want == ["refresh", ("train", True), ("train", False),
+                        "refresh", ("train", False)]
+        assert state.update_count == 80 * n_itr
 
 
 def test_recurrent_curve_writes_the_jax_tools_files(tmp_path, capsys):
@@ -307,7 +406,7 @@ def test_recurrent_curve_writes_the_jax_tools_files(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 
 SCRIPTS = ("torch_train_curve", "torch_train_offpolicy_curve",
-           "torch_train_recurrent_curve", "curve_band")
+           "torch_train_recurrent_curve", "curve_band", "torch_eval_td3")
 
 
 @pytest.mark.parametrize("name", SCRIPTS)
