@@ -395,9 +395,9 @@ class CassieEnv(Env):
                 hfield_active=torch.ones_like(params.hfield_active))
         return params, menc, jenc
 
-    def _clock(self, swing, stance, mode) -> GaitClock:
+    def _clock(self, swing, stance, mode, fused: bool = True) -> GaitClock:
         return build_clock(swing, stance, mode, self.strict_relaxer,
-                           self.have_incentive, float(self._freq))
+                           self.have_incentive, float(self._freq), fused)
 
     def _make_clock(self, noise: ResetNoise, fresh_fleet: bool = False):
         """The episode's gait clock (envs/cassie.py:356-375): the loaded
@@ -488,7 +488,9 @@ class CassieEnv(Env):
         full = lambda v: torch.full((batch,), v, device=dev)
         swing, stance = full(0.15), full(0.25)
         mode = const(STANCE_GROUNDED, dev)[:, None].expand(3, batch)
-        clock = (self._clock(swing, stance, mode)
+        # XLA folds this clock's constants op by op: phaselen uncontracted
+        # (at simrate 60 the contracted sum is an ulp short)
+        clock = (self._clock(swing, stance, mode, fused=False)
                  if self._loaded_clock is None else self._loaded(batch))
         phys = CassiePhysState.standing(batch, dev)
         params = PhysParams.from_model(self.model, batch, dev)

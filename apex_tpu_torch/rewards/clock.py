@@ -78,16 +78,23 @@ def _value_table(stance_mode: torch.Tensor, have_incentive: bool
 
 def build_clock(swing_duration: torch.Tensor, stance_duration: torch.Tensor,
                 stance_mode: torch.Tensor, strict_relaxer: float = 0.1,
-                have_incentive: bool = True, freq: float = 40.0
-                ) -> GaitClock:
+                have_incentive: bool = True, freq: float = 40.0,
+                fused: bool = True) -> GaitClock:
     """Port of create_phase_reward (phase_function.py:5-136): durations
-    (B,), stance_mode one-hot (3, B)."""
+    (B,), stance_mode one-hot (3, B). `fused=False` takes phaselen as the
+    JAX package computes it op by op, outside a compiled program
+    (`drive._apply_key`'s clock keys)."""
     sw = swing_duration * freq
     st = stance_duration * freq
-    # phaselen 2 sw + 2 st, as XLA compiles it: the doublings folded into
-    # the constant 2 freq and the sum contracted into one fused
-    # multiply-add (the 5k's gait clock floors by it, so its ulp counts)
-    total = fma_f32(swing_duration, 2 * freq, stance_duration * (2 * freq))
+    if fused:
+        # phaselen 2 sw + 2 st, as XLA compiles it: the doublings folded
+        # into the constant 2 freq and the sum contracted into one fused
+        # multiply-add (the 5k's gait clock floors by it, so its ulp
+        # counts)
+        total = fma_f32(swing_duration, 2 * freq,
+                        stance_duration * (2 * freq))
+    else:
+        total = 2 * sw + 2 * st
     off_sw = sw * strict_relaxer     # swing relax offset
     off_st = st * strict_relaxer     # double-stance relax offset
 

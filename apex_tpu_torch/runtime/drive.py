@@ -69,8 +69,10 @@ def _apply_key(env, state, key: str):
                        "3": STANCE_AERIAL}[key]
             mode = torch.tensor(one_hot, device=mode.device)[:, None] \
                 .expand_as(mode).contiguous()
-        clock = build_clock(swing, stance, mode, env.strict_relaxer, True,
-                            float(env._freq))
+        # JAX's _apply_key runs op by op: its phaselen is not contracted
+        clock = build_clock(swing, stance, mode, env.strict_relaxer,
+                            env.have_incentive, float(env._freq),
+                            fused=False)
         return dataclasses.replace(state, swing_duration=swing,
                                    stance_duration=stance, stance_mode=mode,
                                    clock=clock)
@@ -101,7 +103,9 @@ def drive_policy(actor, norm, env, script, n_steps: int = 300,
         by_step.setdefault(t, []).append(k)
     generator = torch.Generator(device=env.device)
     generator.manual_seed(seed)
-    state, obs = env.reset(env.sample_reset_noise(generator, 1))
+    # JAX resets here through `jax.jit(env.reset)` of one env, a program
+    # that builds the clock as `init_runner`'s does (`reset_fresh`)
+    state, obs = env.reset_fresh(env.sample_reset_noise(generator, 1))
     zero = torch.zeros_like(state.speed)
     state = dataclasses.replace(state, speed=zero + start_speed,
                                 side_speed=zero, orient_add=zero)
@@ -113,7 +117,8 @@ def drive_policy(actor, norm, env, script, n_steps: int = 300,
     for t in range(n_steps):
         for key in by_step.get(t, ()):
             if key == "r":
-                state, obs = env.reset(env.sample_reset_noise(generator, 1))
+                state, obs = env.reset_fresh(
+                    env.sample_reset_noise(generator, 1))
             else:
                 state = _apply_key(env, state, key)
         action = actor.act(norm, obs, deterministic=True)

@@ -127,7 +127,9 @@ def _one_env_rollout(path: str, n_steps: int, speed: float, device,
     env = exp.env
     generator = torch.Generator(device=env.device)
     generator.manual_seed(0)
-    state, obs = env.reset(env.sample_reset_noise(generator, 1))
+    # JAX's `jax.jit(env.reset)` of one env builds the clock as its
+    # `init_runner` program does (`reset_fresh`)
+    state, obs = env.reset_fresh(env.sample_reset_noise(generator, 1))
     if hasattr(state, "speed"):
         state = dataclasses.replace(state,
                                     speed=torch.full_like(state.speed, speed))

@@ -67,7 +67,7 @@ its seconds as it ends:
              lost launches)
   K1-gains   K1 against its plain version with per-env PD gains (the
              defaults plus N(0, 40^2) and N(0, 8^2): negative d gains),
-             as learned-gain policies hand them over, at B = 64 and 1024
+             as learned-gain policies hand them over, at B = 64
   parity     a reset and one fleet substep on the GPU against the CPU;
              a GPU env step gives finite values of the right shapes
   clock_5k   the gait clock every trial of a 5k cell follows (mk5c's env:
@@ -77,27 +77,27 @@ its seconds as it ends:
              clock length after every step bit for bit (the CPU's
              sequences equal the JAX package's, tests/test_torch_clock_5k.py)
   eval       the 64-env, 300-step evaluation on the megakernel tier for
-             seeds 42, 0 and 1; launch counts of K1, K2 and K3 must equal
-             what the code path implies
-  eval_fleet the same evaluation on the fleet tier, 15 steps, seed 42
+             seed 42; launch counts of K1, K2 and K3 must equal what the
+             code path implies
+  eval_fleet the same evaluation on the fleet tier, 5 steps, seed 42
   eval_mk5c, eval_mk4_terrain
              the terrain checkpoints' 64-env, 300-step evaluations on the
              megakernel tier (seed 42), every K1 launch a
              heightfield one; eval_fleet_mk5c: mk5c on the fleet tier,
-             15 steps; the returns of eval, eval_mk5c and eval_mk4_terrain
+             5 steps; the returns of eval, eval_mk5c and eval_mk4_terrain
              bit for bit those of earlier runs
   per_env    the per-env engine tier: a 64-env Cassie substep against the
              fleet tier at the JAX package's tier-to-tier tolerances; the
-             mk4_hardened evaluation on it (64 envs, 15 steps, seed 42),
+             mk4_hardened evaluation on it (64 envs, 5 steps, seed 42),
              counted (K3-bf once per substep, nothing else), ms per policy
              step and launches per substep; Walker2d on it at 2048 envs
              for 3 steps against its fleet tier, counted (4 K3-bf a step)
   tools      the nine `scripts/torch_<tool>.py` front ends of tools/ at a
              small size, each counted exactly: megakernel_divergence on
-             mk5a at 8 envs x 4 steps on all three tiers (their returns
+             mk5a at 8 envs x 2 steps on all three tiers (their returns
              within 1.8 % of each other), estimator_divergence (five rows
-             of 8 envs x 4 steps, "exact" equal to "firmware tau=12ms"),
-             mirror_policy_check (16 envs, 4 steps), vis_perturb (its 4 x
+             of 8 envs x 2 steps, "exact" equal to "firmware tau=12ms"),
+             mirror_policy_check (16 envs, 2 steps), vis_perturb (its 4 x
              1 grid of 208 steps) and vis_input_and_state (20 steps) on
              mk4_hardened; aslip_tests' grf, footplace and taskspace on a
              one-iteration aslip run of CassieTraj-v0; make_mission into a
@@ -119,7 +119,8 @@ its seconds as it ends:
   step_1024  ms per policy step at the training fleet (1024 envs), and
              CUDA launches per substep from torch.profiler
   train      `python -m apex_tpu_torch ppo` in-process, one iteration of
-             8,192 env steps at 1024 envs; the run directory loads back
+             8,192 env steps at 1024 envs and a 100-step evaluation; the
+             run directory loads back
   train_new_envs
              one `ppo` iteration each through the CLI (256 envs, 2,048
              steps, a 50-step evaluation): Cassie-v0 with learned gains, a
@@ -128,13 +129,14 @@ its seconds as it ends:
              loading back
   curves     the learning-curve scripts in-process, counted:
              `scripts/torch_train_curve.py cassie --dyn-random` for one
-             iteration at 1024 envs and its eval (the JAX tool's
+             iteration at 1024 envs and its 100-step eval (the JAX tool's
              npz keys, finite returns, the checkpoint loading back), one
              `ars` and one `td3_sync` iteration of
              `torch_train_offpolicy_curve.py`, two of `td3_async` (the
-             warm-up and one acting iteration, 100-step evals), and one
-             iteration of
-             `torch_train_recurrent_curve.py walker`, on Walker2d
+             warm-up and one acting iteration; td3's episodes and evals
+             100 steps), and one iteration of
+             `torch_train_recurrent_curve.py walker` (a 100-step eval), on
+             Walker2d
   walker_fleet
              Walker2d on the fleet tier at 2048 envs: K2 on its model and
              K3 on its M + hD against their plain versions (timed, with
@@ -142,16 +144,18 @@ its seconds as it ends:
              against the same step with the plain versions on the card
   walker2d_ppo
              bench.py's Walker2d PPO cell (2048 envs, 32 steps, minibatch
-             4096), two iterations of rollout, update and 300-step eval,
+             4096), one iteration of rollout, update and 300-step eval,
              counted (a reset launches nothing; an env step 4 K2, 4 K3);
              then a learning check: 32 envs, 12 iterations, the eval
              return must rise by more than 50
   td3        bench.py's TD3 cell (async, 64 envs, Walker2d, the 1M ring):
-             a warm-up and three policy iterations, counted; updates/s
+             a warm-up and two policy iterations, counted; updates/s
   td3_cassie `python -m apex_tpu_torch td3_sync` on Cassie-v0 (K1), two
-             iterations and an eval, counted; run dir name and checkpoint
+             iterations and an eval (100-step episodes), counted; run dir
+             name and checkpoint
   ddpg, ars  `python -m apex_tpu_torch ddpg` and `ars` on Walker2d at the
-             CLI's defaults, one iteration each, counted
+             CLI's defaults but 100- and 200-step episodes, one iteration
+             each, counted
   recurrent_ppo_walker
              `curves/recurrent_ppo_walker_seed0_ckpt` evaluated (256 envs,
              400 steps) on JAX's seed-42 reset draws, held within 1.8 % of
@@ -161,10 +165,10 @@ its seconds as it ends:
              one `ppo --recurrent --mirror` iteration on Cassie-v0 (64
              envs, K1), counted
   rdpg, ars_recurrent
-             `rdpg` (64 envs, 400-step episodes, 4 of the CLI's 80 BPTT
+             `rdpg` (64 envs, 200-step episodes, 4 of the CLI's 80 BPTT
              updates, each timed; the recurrent evaluation) and `ars
-             --recurrent` on Walker2d at the CLI's widths, one iteration
-             each, counted
+             --recurrent` (200-step episodes) on Walker2d at the CLI's
+             widths, one iteration each, counted
   suites_mk4 the eval battery's suites on mk4_hardened through the port's
              entry points (`runtime/eval_suites.py`): perturbation on the
              full 8 x 14 x 4 grid (448 envs, 88 steps; survivors at 25 N,
@@ -252,10 +256,10 @@ N_ENVS, TRAJ_LEN, FLEET = 64, 300, 1024
 # switches must leave them bit for bit (the terrain checkpoints' seeds 0
 # and 1, 273.6381530761719 / 264.85650634765625 on mk5c and
 # 144.77532958984375 / 138.7381591796875 on mk4_terrain, are no longer
-# run, to keep the script inside its time: PERF.md section 6)
+# run, to keep the script inside its time: PERF.md section 6; nor are
+# mk4_hardened's seeds 0 and 1, 132.28341674804688 / 124.5030517578125)
 EARLIER_RETURNS = {
-    "eval": {42: 134.17620849609375, 0: 132.28341674804688,
-             1: 124.5030517578125},
+    "eval": {42: 134.17620849609375},
     "eval_mk5c": {42: 265.31829833984375},
     "eval_mk4_terrain": {42: 149.14862060546875}}
 # JAX's returns of the port-trained checkpoint's evaluation at seeds 42, 0
@@ -280,7 +284,7 @@ SWITCH_CKPTS = {
 # the draws files not named after their run dir (`draws_file`)
 DRAWS_NAMES = {"torch_cassie_mk4_hardened_seed0_ckpt": "torch_mk4_seed0"}
 EVAL_BOUND = 0.018     # the JAX package's bound between its physics tiers
-FLEET_TRAJ_LEN = 15                # depth of the fleet-tier evaluation
+FLEET_TRAJ_LEN = 5                 # depth of the fleet-tier evaluation
 SIMRATE = 50
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -1049,7 +1053,7 @@ def check_analysis(dev):
 # the tools phase: the divergence run's checkpoint, fleet and depth; the
 # other Cassie tools' fleet, depth and run
 TOOLS_CKPT = "curves/cassie_mk5a_ckpt"
-TOOL_ENVS, TOOL_STEPS, TOOL_RECORD_STEPS = 8, 4, 20
+TOOL_ENVS, TOOL_STEPS, TOOL_RECORD_STEPS = 8, 2, 20
 # the aslip run of the tools phase: one `ppo` iteration of CassieTraj-v0
 ASLIP_PPO = ["ppo", "--traj", "aslip", "--num_procs", "16", "--num_steps",
              "64", "--max_traj_len", "4", "--n_itr", "1",
@@ -1605,16 +1609,17 @@ def check_k1_gains(dev):
     learned gains (CassieEnv learn_gains) hands them to K1's gain rows: the
     defaults plus N(0, 40^2) on the p gains and N(0, 8^2) on the d gains,
     so that some p and about a quarter of the d gains are negative, on the
-    perturbed fleet and near the standing pose, at B = 64 and 1024; held
-    per row to the plain version's rounding spread as `check_k1` holds
-    the default gains. Its own generator: no other phase's draws move."""
+    perturbed fleet and near the standing pose, at B = 64 (the gain rows
+    are per env: K1 at 1024 is held with the default gains); held per row
+    to the plain version's rounding spread as `check_k1` holds the
+    default gains. Its own generator: no other phase's draws move."""
     gen = torch.Generator()
     gen.manual_seed(11)
     m = cassie_model()
     nu = m.nu
     f32 = lambda x: torch.tensor(np.asarray(x, np.float32))[:, None]
     out = {}
-    for B in (N_ENVS, FLEET):
+    for B in (N_ENVS,):
         for tag, make in (("perturbed", k1_inputs),
                           ("standing", k1_standing_inputs)):
             params, qpos, qvel, rows0 = make(B, gen, dev)
@@ -2080,6 +2085,7 @@ def profile_launches(fn):
 # iteration of 8 steps per env (the learning-curve phase, `curves`, trains
 # at the curve tool's settings)
 TRAIN_STEPS, TRAIN_ITR, TRAIN_NORM_STEPS = 8192, 1, 10000
+TRAIN_TRAJ = 100       # the iteration's evaluation (the settings' 300 cut)
 
 
 def train_args(logdir: str):
@@ -2088,7 +2094,7 @@ def train_args(logdir: str):
         "--simrate", str(SIMRATE), "--command_profile", "clock",
         "--input_profile", "full", "--reward", "early_clock", "--estimator",
         "firmware", "--std_dev", "-1.5", "--num_procs", str(FLEET),
-        "--num_steps", str(TRAIN_STEPS), "--max_traj_len", str(TRAJ_LEN),
+        "--num_steps", str(TRAIN_STEPS), "--max_traj_len", str(TRAIN_TRAJ),
         "--n_itr", str(TRAIN_ITR), "--input_norm_steps",
         str(TRAIN_NORM_STEPS), "--seed", "0", "--logdir", logdir]
 
@@ -2109,7 +2115,7 @@ def train(dev):
     # policy steps: the burn-in rollout, then per iteration the training
     # rollout and the max_traj_len-step evaluation
     steps = (TRAIN_NORM_STEPS // FLEET
-             + TRAIN_ITR * (TRAIN_STEPS // FLEET + TRAJ_LEN))
+             + TRAIN_ITR * (TRAIN_STEPS // FLEET + TRAIN_TRAJ))
     check_counts("train", n["K1"], SIMRATE * steps)
     (run_dir,) = glob.glob(os.path.join(logdir, "Cassie-v0", "*"))
     scalars = {}
@@ -2173,13 +2179,13 @@ def walker_curve(name: str, script: str, args, env_steps: int, keys: set,
                  d: str) -> dict:
     """One run of a curve script on Walker2d into `d`, counted: 4 K2 and 4
     K3 per env step, none at a reset; its npz has the keys and finite eval
-    returns. td3_async runs with its episodes and evals cut to
-    CURVE_TD3_EVAL steps, and holds its two iterations' updates, ring and
-    eval points."""
+    returns. td3_sync and td3_async run with their episodes and evals cut
+    to CURVE_TD3_EVAL steps; td3_async holds its two iterations' updates,
+    ring and eval points."""
     cut = (mock.patch("apex_tpu_torch.agents.td3.TD3Config",
                       functools.partial(TD3Config,
                                         max_traj_len=CURVE_TD3_EVAL))
-           if name == "td3_async" else contextlib.nullcontext())
+           if name.startswith("td3") else contextlib.nullcontext())
     with cut:
         state, secs, n = count_launches(
             lambda: load_script(script).main([*args, "--out", d]))
@@ -2203,28 +2209,29 @@ def curves():
     """The learning-curve scripts in-process on the card, counted.
     `torch_train_curve.py cassie --dyn-random` (1024 envs, 32 steps each,
     minibatch 2,048), one iteration and its eval: K1 once per substep of the
-    burn-in, of the iteration's rollout and of the 300-step eval;
+    burn-in, of the iteration's rollout and of the TRAIN_TRAJ-step eval;
     K2 twice per policy step and once per fresh fleet (PPO.init, after the
     burn-in, each eval); K3 never. Its npz has the JAX tool's keys and
     finite returns, and its checkpoint loads back. Then on Walker2d (4 K2
     and 4 K3 per env step, none at a reset): `torch_train_offpolicy_curve.
     py ars` for one iteration (128 envs, 400 steps), `td3_sync` for one
-    (80 steps of 64 envs, the 400-step eval), `td3_async` for two (the
+    (80 steps of 64 envs, a 100-step eval), `td3_async` for two (the
     random warm-up and one acting iteration, each with a 100-step eval)
     and
     `torch_train_recurrent_curve.py walker` for one (the 39-step burn-in,
-    a 64-step chunk, the 300-step eval)."""
+    a 64-step chunk, a 100-step eval)."""
     out = {}
     os.makedirs("chiprun_out", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="chiprun_out") as d:
         argv = ["cassie", "--dyn-random", "--n-itr", str(CURVE_ITR),
-                "--eval-every", str(CURVE_EVAL_EVERY), "--out", d]
+                "--eval-every", str(CURVE_EVAL_EVERY), "--max-traj-len",
+                str(TRAIN_TRAJ), "--out", d]
         _, secs, n = count_launches(
             lambda: load_script("torch_train_curve").main(argv))
         evals = len(range(0, CURVE_ITR, CURVE_EVAL_EVERY)) + (
             (CURVE_ITR - 1) % CURVE_EVAL_EVERY != 0)
         steps = (CURVE_NORM_STEPS + CURVE_ITR * CURVE_STEPS
-                 + evals * TRAJ_LEN)
+                 + evals * TRAIN_TRAJ)
         check_counts("curves cassie", n, {
             "K1": SIMRATE * steps, "K1-hfield": 0, "K2": 2 * steps + 2 + evals,
             "K3": 0})
@@ -2250,15 +2257,16 @@ def curves():
                         ["ars", "--n-itr", "1"], 400, OFFPOLICY_NPZ_KEYS),
                 "td3_sync": ("torch_train_offpolicy_curve",
                              ["td3_sync", "--timesteps", str(80 * 64)],
-                             80 + 400, OFFPOLICY_NPZ_KEYS),
+                             80 + CURVE_TD3_EVAL, OFFPOLICY_NPZ_KEYS),
                 # the warm-up iteration and one acting one, each with its
                 # eval (iterations 0 and the last) of CURVE_TD3_EVAL steps
                 "td3_async": ("torch_train_offpolicy_curve",
                               ["td3_async", "--timesteps", str(2 * 80 * 64)],
                               2 * (80 + CURVE_TD3_EVAL), OFFPOLICY_NPZ_KEYS),
                 "recurrent_ppo": ("torch_train_recurrent_curve",
-                                  ["walker", "--n-itr", "1"],
-                                  10000 // 256 + 64 + TRAJ_LEN,
+                                  ["walker", "--n-itr", "1",
+                                   "--max-traj-len", str(CURVE_TD3_EVAL)],
+                                  10000 // 256 + 64 + CURVE_TD3_EVAL,
                                   OFFPOLICY_NPZ_KEYS | {"train_return"})}
         for name, run in runs.items():
             out[name] = walker_curve(name, *run, d)
@@ -2273,11 +2281,11 @@ def curves():
 # bench.py's Walker2d PPO cell (bench.py:94-103) and the learning check of
 # tests/test_learning_smoke.py:16-31
 WALKER_FLEET, WALKER_STEPS, WALKER_TRAJ, WALKER_MB = 2048, 32, 300, 4096
-WALKER_ITR = 2
+WALKER_ITR = 1
 WALKER_SUBSTEPS = Walker2dEnv.frame_skip
 LEARN_ENVS, LEARN_ITR, LEARN_RISE = 32, 12, 50.0
 # bench.py's TD3 cell (bench.py:106-121): async, 64 envs, the 1M ring
-TD3_ITR = 3
+TD3_ITR = 2
 # leaves of the JAX package's TD3TrainState on Cassie-v0 (pinned on the CPU
 # against a JAX template by tests/test_torch_offpolicy.py)
 TD3_CASSIE_LEAVES = 131
@@ -2453,7 +2461,7 @@ def check_walker_fleet(dev):
 
 def walker2d_ppo(dev):
     """bench.py's Walker2d PPO cell (2048 envs, 32 steps per env, minibatch
-    4096, 3 epochs, traj 300) for two iterations, each a rollout, the
+    4096, 3 epochs, traj 300) for WALKER_ITR iterations, each a rollout, the
     update and the 300-step evaluation, counted: a reset launches
     nothing, an env step 4 K2 and 4 K3. Then the learning check of
     tests/test_learning_smoke.py:16-31 (32 envs, 12 iterations, lr 3e-4,
@@ -2541,7 +2549,7 @@ def walker2d_ppo(dev):
 
 def td3_walker(dev):
     """bench.py's TD3 cell: `TD3Config(num_envs=64, async_mode=True)` on
-    Walker2d with the 1M ring, one random warm-up iteration and three
+    Walker2d with the 1M ring, one random warm-up iteration and TD3_ITR
     policy iterations, each counted (80 env steps: 320 K2 and 320 K3);
     learner updates/s as bench.py counts them (iterations x 80 over the
     seconds of the policy iterations, collection included), and 80 updates
@@ -2631,16 +2639,18 @@ def run_cli(argv, env_name: str, want, then=None):
 
 def td3_cassie():
     """`python -m apex_tpu_torch td3_sync` on Cassie-v0 (the CLI's
-    defaults: megakernel tier, 64 envs, the 1M ring), two iterations
-    (the random warm-up and one policy iteration) and the evaluation at
-    iteration 0: K1 once per substep of the 2 x 80 + 400 steps, K2 twice
+    defaults but CLI_TRAJ-step episodes: megakernel tier, 64 envs, the 1M
+    ring), two iterations (the random warm-up and one policy iteration)
+    and the evaluation at iteration 0: K1 once per substep of the 2 x 80 +
+    CLI_TRAJ steps, K2 twice
     per step and once per fresh fleet (TD3.init, the evaluation), K3
     never; the run dir is named by the hash of apex.py's namespace, and
     the checkpoint holds the JAX TD3 train state's leaves."""
-    steps = 2 * 80 + 400
+    steps = 2 * 80 + CLI_TRAJ
     secs, args, scalars, leaves = run_cli(
         ["td3_sync", "--max_timesteps", str(2 * 80 * 64),
-         "--start_timesteps", "5120"], "Cassie-v0",
+         "--start_timesteps", "5120", "--max_traj_len", str(CLI_TRAJ)],
+        "Cassie-v0",
         {"K1": SIMRATE * steps, "K1-hfield": 0, "K2": 2 * steps + 2,
          "K3": 0})
     if tuple(sorted(args)) != TD3_KEYS:
@@ -2659,12 +2669,14 @@ def td3_cassie():
 
 
 def ddpg_walker():
-    """`python -m apex_tpu_torch ddpg` on Walker2d at the CLI's defaults,
-    one iteration (the random warm-up: 80 steps of 64 envs, 80 updates)
-    and the 400-step evaluation: 4 K2 and 4 K3 per env step."""
-    steps = 80 + 400
+    """`python -m apex_tpu_torch ddpg` on Walker2d at the CLI's defaults
+    but CLI_TRAJ-step episodes, one iteration (the random warm-up: 80
+    steps of 64 envs, 80 updates) and the evaluation: 4 K2 and 4 K3 per
+    env step."""
+    steps = 80 + CLI_TRAJ
     secs, _, scalars, _ = run_cli(
-        ["ddpg", "--max_timesteps", str(80 * 64)], "Walker2d-v0",
+        ["ddpg", "--max_timesteps", str(80 * 64), "--max_traj_len",
+         str(CLI_TRAJ)], "Walker2d-v0",
         {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * steps,
          "K3": WALKER_SUBSTEPS * steps})
     if not np.all(np.isfinite(scalars["Test/Return"])):
@@ -2677,17 +2689,18 @@ def ddpg_walker():
 
 def ars_walker():
     """`python -m apex_tpu_torch ars` on Walker2d at the CLI's defaults, 64
-    directions: one iteration, a fleet of 128 envs for 400 steps without
-    auto-reset, 4 K2 and 4 K3 per step."""
+    directions, but ARS_TRAJ-step episodes: one iteration, a fleet of 128
+    envs for ARS_TRAJ steps without auto-reset, 4 K2 and 4 K3 per step."""
     secs, _, scalars, leaves = run_cli(
-        ["ars", "--n_itr", "1"], "Walker2d-v0",
-        {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * 400,
-         "K3": WALKER_SUBSTEPS * 400})
+        ["ars", "--n_itr", "1", "--max_traj_len", str(ARS_TRAJ)],
+        "Walker2d-v0",
+        {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * ARS_TRAJ,
+         "K3": WALKER_SUBSTEPS * ARS_TRAJ})
     theta = np.asarray(leaves[0])
     if not (np.all(np.isfinite(theta)) and np.any(theta != 0)):
         raise AssertionError("ars: θ did not move or is not finite")
-    return dict(seconds=f"{secs:.1f}", envs=128, env_steps=400,
-                k2_launches=WALKER_SUBSTEPS * 400,
+    return dict(seconds=f"{secs:.1f}", envs=128, env_steps=ARS_TRAJ,
+                k2_launches=WALKER_SUBSTEPS * ARS_TRAJ,
                 mean_return=f"{scalars['Test/Return'][0]:.4f}",
                 total_steps=int(leaves[-1]))
 
@@ -2705,6 +2718,9 @@ RPPO_STEPS, RPPO_ITR, RPPO_NORM_STEPS = 256 * 32, 1, 10000
 RPPO_CASSIE_ENVS, RPPO_CASSIE_T, RPPO_CASSIE_NORM, RPPO_CASSIE_TRAJ = (
     64, 16, 8, 100)
 RDPG_UPDATES = 4                   # of the CLI's 80 (rdpg_updates)
+# the episodes of the CLI's ARS and RDPG runs (the CLI's 400 cut) and of
+# its td3_sync on Cassie and ddpg (their evaluations too)
+ARS_TRAJ, CLI_TRAJ = 200, 100
 
 
 def recurrent_ppo_walker(dev):
@@ -2714,9 +2730,9 @@ def recurrent_ppo_walker(dev):
     reset draws of JAX's seed-42 evaluation, held within EVAL_BOUND of
     JAX's return, counted (a reset launches nothing, a step 4 K2 and 4
     K3). Then one iteration of `python -m apex_tpu_torch ppo --env_name
-    Walker2d --recurrent --num_procs 256 --num_steps 8192` (the 39-step
-    burn-in, a 32-step chunk, the BPTT update and the 400-step
-    evaluation), counted; its run dir loads back into the port's
+    Walker2d --recurrent --num_procs 256 --num_steps 8192 --max_traj_len
+    CLI_TRAJ` (the 39-step burn-in, a 32-step chunk, the BPTT update and
+    the evaluation), counted; its run dir loads back into the port's
     RecurrentPPOState."""
     from apex_tpu_torch.agents.ppo_recurrent import RecurrentPPO
     from apex_tpu_torch.envs.walker2d import WalkerResetNoise
@@ -2749,7 +2765,7 @@ def recurrent_ppo_walker(dev):
     if not abs(rel) <= EVAL_BOUND:
         raise AssertionError(f"recurrent_ppo_walker: return {ret} is "
                              f"{rel:+.4%} from JAX's {jax_ret}")
-    steps = RPPO_NORM_STEPS // B + RPPO_ITR * (RPPO_STEPS // B + T)
+    steps = RPPO_NORM_STEPS // B + RPPO_ITR * (RPPO_STEPS // B + CLI_TRAJ)
     cli_want = {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * steps,
                 "K3": WALKER_SUBSTEPS * steps}
 
@@ -2760,7 +2776,8 @@ def recurrent_ppo_walker(dev):
 
     (cli_s, args, scalars, leaves), n_back = run_cli(
         ["ppo", "--recurrent", "--num_procs", str(B), "--num_steps",
-         str(RPPO_STEPS), "--n_itr", str(RPPO_ITR), "--seed", "0"],
+         str(RPPO_STEPS), "--n_itr", str(RPPO_ITR), "--max_traj_len",
+         str(CLI_TRAJ), "--seed", "0"],
         "Walker2d", cli_want, then=reload)
     if not (args["recurrent"] and len(leaves) == n_back == RECURRENT_LEAVES):
         raise AssertionError(f"recurrent ppo: {len(leaves)} leaves, "
@@ -2839,16 +2856,17 @@ def rdpg_updates(n: int):
 
 def rdpg_walker():
     """`python -m apex_tpu_torch rdpg` on Walker2d at the CLI's widths (64
-    envs, 400-step episodes, batches of 16 episodes, layers (128, 128)):
-    one iteration (the random warm-up: one episode per env into the ring,
-    then RDPG_UPDATES BPTT updates, each timed: the eager BPTT takes ~2 s
-    per update, so the CLI's 80 would take ~160 s of the script) and the
-    recurrent evaluation (400 steps), counted: 4 K2 and 4 K3 per env
-    step."""
-    steps = 400 + 400
+    envs, batches of 16 episodes, layers (128, 128)) with ARS_TRAJ-step
+    episodes: one iteration (the random warm-up: one episode per env into
+    the ring, then RDPG_UPDATES BPTT updates, each timed: the eager BPTT
+    takes ~1-3 s per update, so the CLI's 80 would take minutes of the
+    script) and the recurrent evaluation (ARS_TRAJ steps), counted: 4 K2
+    and 4 K3 per env step."""
+    steps = 2 * ARS_TRAJ
     with rdpg_updates(RDPG_UPDATES) as update_s:
         secs, _, scalars, leaves = run_cli(
-            ["rdpg", "--max_timesteps", str(400 * 64)], "Walker2d-v0",
+            ["rdpg", "--max_timesteps", str(ARS_TRAJ * 64),
+             "--max_traj_len", str(ARS_TRAJ)], "Walker2d-v0",
             {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * steps,
              "K3": WALKER_SUBSTEPS * steps})
     if len(update_s) != RDPG_UPDATES:
@@ -2857,7 +2875,8 @@ def rdpg_walker():
     for tag in ("Test/Return", "Misc/Critic Loss"):
         if not np.all(np.isfinite(scalars[tag])):
             raise AssertionError(f"rdpg: {tag} = {scalars[tag]}")
-    print(f"  rdpg: {RDPG_UPDATES} BPTT updates of 16 episodes x 400 steps "
+    print(f"  rdpg: {RDPG_UPDATES} BPTT updates of 16 episodes x "
+          f"{ARS_TRAJ} steps "
           f"(the CLI's 80 cut), {np.mean(update_s) * 1e3:.1f} ms each",
           flush=True)
     return dict(seconds=f"{secs:.1f}", env_steps=steps,
@@ -2872,18 +2891,20 @@ def rdpg_walker():
 def ars_recurrent_walker():
     """`python -m apex_tpu_torch ars --recurrent` on Walker2d at the CLI's
     defaults (64 directions, hidden 32: an LSTM policy of layers (32,
-    32)): one iteration, 128 envs for 400 steps, 4 K2 and 4 K3 per
-    step."""
+    32)) but ARS_TRAJ-step episodes: one iteration, 128 envs for ARS_TRAJ
+    steps, 4 K2 and 4 K3 per step."""
     secs, _, scalars, leaves = run_cli(
-        ["ars", "--recurrent", "--n_itr", "1"], "Walker2d-v0",
-        {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * 400,
-         "K3": WALKER_SUBSTEPS * 400})
+        ["ars", "--recurrent", "--n_itr", "1", "--max_traj_len",
+         str(ARS_TRAJ)], "Walker2d-v0",
+        {"K1": 0, "K1-hfield": 0, "K2": WALKER_SUBSTEPS * ARS_TRAJ,
+         "K3": WALKER_SUBSTEPS * ARS_TRAJ})
     theta = np.asarray(leaves[0])
     if not (np.all(np.isfinite(theta)) and np.any(theta != 0)):
         raise AssertionError("ars --recurrent: θ did not move or is not "
                              "finite")
-    return dict(seconds=f"{secs:.1f}", envs=128, env_steps=400,
-                theta_size=theta.size, k2_launches=WALKER_SUBSTEPS * 400,
+    return dict(seconds=f"{secs:.1f}", envs=128, env_steps=ARS_TRAJ,
+                theta_size=theta.size,
+                k2_launches=WALKER_SUBSTEPS * ARS_TRAJ,
                 mean_return=f"{scalars['Test/Return'][0]:.4f}")
 
 

@@ -32,6 +32,7 @@ JAX's auto-reset bit for bit in every configuration, and its fresh-fleet
 reset (`reset_fresh`, through `init_runner`) is JAX's first-fleet
 program's.
 """
+import dataclasses
 import pathlib
 import pickle
 from types import SimpleNamespace
@@ -269,3 +270,178 @@ def test_port_fresh_fleet_clock_is_jax_init_runner_bit_for_bit(file):
     assert int(np.sum(init != auto)) == EXPECTED_INIT_DIFFS[file]
     speeds = np.concatenate([_file_speeds(f) for f in CONFIGS[config][1]])
     _assert_same(file, _port_clocks(config, speeds, fresh=True)[rows], init)
+
+
+# ---------------------------------------------------------------------------
+# JAX's other programs that build a clock: the suites, the analysis jobs,
+# ARS's rollout, the single-env reset and drive_policy's clock keys, as
+# `scripts/export_clock_programs.py` ran them (each program compiles its
+# whole trial, ~1-5 min here, so their clock lengths are read from the
+# committed export, made with the same speed lookup as above)
+PROGRAMS_EXPORT = DRAWS / "clock_programs.npz"
+# each program's reset in the port: JAX's batched programs build the clock
+# as its auto-reset does; `jax.jit(env.reset)` of one env (drive_policy's
+# reset and "r" key, record_policy's and dump_gait's reset) as its
+# `init_runner` program does
+PROGRAM_RESETS = {"perturb": "reset", "sensitivity": "reset",
+                  "rollout_record": "reset", "perturb_response": "reset",
+                  "ars": "reset", "single_reset": "reset_fresh"}
+# programs that cannot run on a configuration's env in the JAX package:
+# the perturbation suite reads `state.clock`, which CassieTrajEnv's state
+# does not have (it keeps phaselen on the state)
+NOT_RUN = {("traj", "perturb")}
+# speeds of each file at which the program's clock length parts from
+# JAX's auto-reset's (of 128; traj's of 136): the single-env reset's are
+# init_runner's
+EXPECTED_PROGRAM_DIFFS = {
+    p: (EXPECTED_INIT_DIFFS if r == "reset_fresh"
+        else dict.fromkeys(EXPECTED_INIT_DIFFS, 0))
+    for p, r in PROGRAM_RESETS.items()}
+# drive_policy's clock keys: the speeds of each configuration (its files'
+# distinct speeds) at which JAX's key, computed op by op, parts from the
+# contracted arithmetic of every compiled program's build_clock, per key
+EXPECTED_KEY_DIFFS = {"main": {"x": 32, "z": 22, "v": 32, "c": 33},
+                      "mk5a": {"x": 21, "z": 17, "v": 16, "c": 21},
+                      "mk5b": {"x": 27, "z": 33, "v": 32, "c": 23},
+                      "traj": {"x": 8, "z": 5, "v": 4, "c": 5}}
+
+
+def _export():
+    with np.load(PROGRAMS_EXPORT) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _program_clocks(config: str, program: str, speeds) -> np.ndarray:
+    """The export's clock length of `program` at each of `speeds` (the
+    files' speeds; CassieTraj-v0's speed indices), looked up by the speed
+    its reset stored."""
+    ex = _export()
+    table = {}
+    for s, p in zip(ex[f"{config}/{program}/speed"],
+                    ex[f"{config}/{program}/phaselen"]):
+        assert table.setdefault(float(s), p) == p, (program, s)
+    key = (np.float32(speeds) * np.float32(0.1) if config == "traj"
+           else np.asarray(speeds))
+    return np.array([table[float(k)] for k in key], np.float32)
+
+
+def test_export_holds_every_program():
+    """Every program ran on every configuration but the ones NOT_RUN
+    names, with the files' speeds read back from its resets."""
+    ex = _export()
+    for config in CONFIGS:
+        speeds = np.concatenate([_file_speeds(f)
+                                 for f in CONFIGS[config][1]])
+        want = (np.float32(speeds) * np.float32(0.1) if config == "traj"
+                else np.float32(speeds))
+        for program in PROGRAM_RESETS:
+            name = f"{config}/{program}"
+            if (config, program) in NOT_RUN:
+                assert f"{name}/error" in ex, name
+                continue
+            assert set(ex[f"{name}/speed"]) == set(want), name
+
+
+@pytest.mark.parametrize("file,program", [
+    (f, p) for f in FILES for p in PROGRAM_RESETS
+    if (_rows(f)[0], p) not in NOT_RUN])
+def test_port_clock_is_each_jax_program_bit_for_bit(file, program):
+    """The port's reset in each program (PROGRAM_RESETS) gives JAX's clock
+    length bit for bit at every speed of the file; the program parts from
+    JAX's auto-reset on EXPECTED_PROGRAM_DIFFS of them."""
+    config, _ = _rows(file)
+    speeds = _file_speeds(file)
+    jax_p = _program_clocks(config, program, speeds)
+    fresh = PROGRAM_RESETS[program] == "reset_fresh"
+    _assert_same(file, _port_clocks(config, speeds, fresh=fresh), jax_p)
+    auto = _port_clocks(config, speeds)
+    assert int(np.sum(jax_p != auto)) == \
+        EXPECTED_PROGRAM_DIFFS[program][file]
+
+
+@pytest.mark.parametrize("config", [c for c in CONFIGS if c != "traj"])
+def test_command_suite_clock_is_jax_reset_for_test(config):
+    """The command suite's trials start from reset_for_test, whose clock is
+    the fixed grounded 0.15 / 0.25 s one (no speed reaches it, and the
+    suite's speed commands leave it, as JAX's do): its length is JAX's,
+    which XLA folds from constants op by op (26.400002 at mk5b's simrate
+    60, where the contracted sum gives 26.4)."""
+    env = load_experiment(str(ROOT / "curves" / CONFIGS[config][0]),
+                          device="cpu").env
+    state, _ = env.reset_for_test(2)
+    want = _export()[f"{config}/commands/phaselen"]
+    np.testing.assert_array_equal(_phaselen(state),
+                                  np.full(2, want[0], np.float32))
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_drive_clock_keys_are_jax_op_by_op(config):
+    """drive_policy's x, z, v and c keys rebuild the clock from the swing
+    or stance duration +- 0.01 s; JAX's `_apply_key` runs op by op, so
+    phaselen = 2 sw + 2 st is not contracted. On JAX's durations of each
+    speed's single-env reset, the port's key gives JAX's length bit for
+    bit, and the contracted arithmetic parts from it at
+    EXPECTED_KEY_DIFFS of the speeds."""
+    from apex_tpu_torch.rewards.clock import build_clock
+    from apex_tpu_torch.runtime.drive import _apply_key
+
+    ex = _export()
+    env = load_experiment(str(ROOT / "curves" / CONFIGS[config][0]),
+                          device="cpu").env
+    swing = torch.as_tensor(ex[f"{config}/drive_keys/swing"])
+    stance = torch.as_tensor(ex[f"{config}/drive_keys/stance"])
+    B = len(swing)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    state, _ = env.reset(env.sample_reset_noise(gen, B))
+    state = dataclasses.replace(state, swing_duration=swing,
+                                stance_duration=stance)
+    for key in "xzvc":
+        got = _apply_key(env, state, key).clock.phaselen.numpy()
+        want = ex[f"{config}/drive_keys/phaselen_{key}"]
+        diff = np.flatnonzero(got != want)
+        assert diff.size == 0, (key, diff.size, got[diff[:3]],
+                                want[diff[:3]])
+        fused = build_clock(swing + (key == "x") * 0.01 - (key == "z") * 0.01,
+                            stance + (key == "v") * 0.01
+                            - (key == "c") * 0.01, state.stance_mode,
+                            env.strict_relaxer, env.have_incentive,
+                            float(env._freq)).phaselen.numpy()
+        assert int(np.sum(fused != want)) == EXPECTED_KEY_DIFFS[config][key]
+
+
+def test_single_env_programs_reset_as_init_runner(monkeypatch):
+    """drive_policy (its start and its "r" key) and the one-env rollouts
+    of record_policy and dump_gait reset through `reset_fresh`, the
+    arithmetic of JAX's `jax.jit(env.reset)`, and never through `reset`."""
+    from apex_tpu_torch.envs.cassie import CassieEnv
+    from apex_tpu_torch.runtime import drive, evaluate
+
+    calls = []
+    for name in ("reset", "reset_fresh"):
+        real = getattr(CassieEnv, name)
+        monkeypatch.setattr(
+            CassieEnv, name,
+            lambda self, noise, _r=real, _n=name, **k: (
+                calls.append(_n), _r(self, noise, **k))[1])
+    exp = load_experiment(str(ROOT / "curves" / "cassie_mk5a_ckpt"),
+                          device="cpu")
+    drive.drive_policy(exp.actor, exp.norm, exp.env, [(0, "r")], n_steps=1)
+    evaluate._one_env_rollout(str(ROOT / "curves" / "cassie_mk5a_ckpt"), 1,
+                              1.0, "cpu", None,
+                              lambda *a: {"x": torch.zeros(1)})
+    assert calls.count("reset_fresh") == 3
+    # `reset_fresh` runs `reset(noise, fresh_fleet=True)`
+    assert calls.count("reset") == 3
+
+
+@pytest.mark.parametrize("mission", ["default", "straight_1.4", "90_left_0.5"])
+def test_mission_clock_is_jax_playgrounds(mission):
+    """The mission suite's CassiePlayground builds no clock from a speed:
+    its phaselen is the mission trajectory's, JAX's bit for bit."""
+    from apex_tpu.envs.cassie_playground import CassiePlayground as JaxPG
+    from apex_tpu_torch.envs.cassie_playground import CassiePlayground
+
+    want = JaxPG(mission=mission).phaselen
+    got = CassiePlayground(mission=mission, device="cpu").phaselen
+    assert np.float32(got) == np.float32(want) and got == want

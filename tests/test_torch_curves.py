@@ -406,7 +406,8 @@ def test_recurrent_curve_writes_the_jax_tools_files(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 
 SCRIPTS = ("torch_train_curve", "torch_train_offpolicy_curve",
-           "torch_train_recurrent_curve", "curve_band", "torch_eval_td3")
+           "torch_train_recurrent_curve", "curve_band", "torch_eval_td3",
+           "s4_bisect")
 
 
 @pytest.mark.parametrize("name", SCRIPTS)
